@@ -7,24 +7,41 @@ Run from the repository root with no arguments:
 
 Phases, each reported on a timestamped, flushed line:
 
-0. device: card name and count, torch and CUDA versions, power limit.
-1. kernel build: compiles every CUDA kernel of the main path from its
-   source into a fresh directory (nvcc, plain C interface, ctypes).
+0. device: card name and count, torch and CUDA versions, power limit,
+   maximum SM clock (the operations bounds use it).
+1. kernel build: compiles every CUDA kernel from its source into a fresh
+   directory (nvcc, plain C interface, ctypes), one nvcc per source, all
+   started together.
 2. kernel vs plain: each kernel equals its plain PyTorch version exactly
-   at the main path's shapes and the TPU kernel tests' shapes; times of
-   both beside the least time the card could take.
-3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100) of
-   the seeded "cohere" corpus, through ``DiskannIndex.build``; checks
-   full reachability, no orphans, degree <= r_max.
+   at the main paths' shapes and the TPU kernel tests' shapes; times of
+   both beside the least time the card could take (the larger of the
+   bytes over the memory rate and the operations on the quicker of the
+   CUDA cores' popc pipe and the int8 tensor cores) and, for the Hamming
+   matrix, the popcount-dot matrix product as the library yardstick.
+3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
+   build_distance "exact-prune") of the seeded "cohere" corpus, through
+   ``DiskannIndex.build``; checks full reachability, no orphans, degree
+   <= r_max.
 4. search: 1,024 queries at k=10, L=100, rescore 50 and 300 through
    ``DiskannIndex.search``; QPS, recall@10 against ``ExactIndex``
-   (fails below 0.80 at rescore 300) and the kernel's launches on the
-   main path (fails at 0).
+   (fails below 0.80 at rescore 300) and the edge-gather kernel's
+   launches on this path (fails at 0).
 5. agreement: the beam search on the card equals the same beam search
    run by the plain versions on the CPU, for 64 queries.
+6. storage build and search: the same corpus and queries with
+   build_distance "storage" (the reference's build: Hamming everywhere);
+   the same graph checks and recall floor, and both kernels launched.
+7. life cycle, 768 wide, storage build: ``build`` on 2,048 rows, 8
+   ``add`` batches of 4,096 (the first one's seed wave launches the
+   Hamming matrix), ``delete`` of 10%, an ``add`` of 2,048 that lands on
+   tombstones, a search that returns no deleted row and holds the recall
+   floor over the live rows, ``save``/``load`` with bit-equal search
+   results, and ``compact`` (count == live rows, all reachable).
 
+Each path (phases 3-4, 6 and 7) is driven with the kernels' launch counts
+set to 0 just before it and read just after; the kernels line sums them.
 The run must end within BUDGET_S seconds; each phase has a deadline and
-the build checks it after every wave.  Any failed check exits non-zero.
+the builds check it after every wave.  Any failed check exits non-zero.
 Without a CUDA device, or without the package beside this script, it
 exits non-zero and prints no result.  The last lines are the kernels'
 JSON record, the card's name and power limit, and the result line.
@@ -46,16 +63,32 @@ BUDGET_S = 600
 # Seconds since start by which each phase must have ended.
 DEADLINES = {
     "device": 60,
-    "kernel build": 240,
-    "kernel vs plain": 300,
-    "build": 520,
-    "search": 570,
-    "agreement": BUDGET_S,
+    "kernel build": 200,
+    "kernel vs plain": 260,
+    "build": 330,
+    "search": 360,
+    "agreement": 380,
+    "storage build": 450,
+    "storage search": 480,
+    "life cycle": 580,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate
+# Per-SM instruction rates per clock, compute capability 9.0 (CUDA C Programming
+# Guide, arithmetic instruction throughput): 32-bit integer add and
+# logical operations, and population count.  They run in separate pipes,
+# so on the CUDA cores the slower of the two bounds.
+INT32_OPS_PER_CLK_SM = 64
+POPC_PER_CLK_SM = 16
+# H100 SXM dense int8 tensor-core peak (data sheet): a Hamming distance is
+# also pop(a) + pop(b) - 2 * dot(a, b) over 0/1 bits, a product the tensor
+# cores compute at this rate.
+INT8_TENSOR_OPS_PER_S = 1.979e15
 N, NQ, DIM, SEED = 100_000, 1024, 768, 0
 MIN_RECALL = 0.80
+# Life cycle: the first build, the add batches, the delete share, the
+# tombstone-reusing add.
+LC_BUILD, LC_BATCH, LC_BATCHES, LC_DELETE, LC_REUSE = 2048, 4096, 8, 0.10, 2048
+KERNELS = ("edge_gather", "hamming_matrix")
 
 
 def elapsed() -> float:
@@ -96,38 +129,77 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def nvidia_smi(query: str) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = nvidia_smi("name,power.limit")
+    clock_line = nvidia_smi("clocks.max.sm")
+    sm_hz = float(clock_line.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     say(f"phase 0 device: {name} x{count}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, nvidia-smi: {smi_line}")
+        f"CUDA {torch.version.cuda}, nvidia-smi: {smi_line}; {sms} SMs, "
+        f"max SM clock {clock_line} (clocks.max.sm)")
     check_deadline("device")
-    return name, count, smi_line
+    return name, count, smi_line, dict(sms=sms, sm_hz=sm_hz)
+
+
+def hamming_ops_ms(card: dict, pairs: int, words: int) -> dict:
+    """Least time for the operations of ``pairs`` Hamming distances of
+    ``words`` 32-bit words each, on the quicker of the card's two ways:
+    the CUDA cores (one XOR, ``popc`` and add per word pair, at the
+    per-SM issue rates) or the tensor cores (a 0/1 bit product, two int8
+    operations per bit pair, at the dense int8 peak)."""
+    per_s = card["sms"] * card["sm_hz"]
+    n = pairs * words
+    cores = max(n / (per_s * POPC_PER_CLK_SM),
+                2 * n / (per_s * INT32_OPS_PER_CLK_SM)) * 1e3
+    tensor = 2 * n * 32 / INT8_TENSOR_OPS_PER_S * 1e3
+    return dict(ms=min(cores, tensor), cores_ms=cores, tensor_ms=tensor,
+                way="popc on the CUDA cores" if cores <= tensor
+                else "int8 tensor cores")
+
+
+def bound(nbytes: int, ops: dict) -> tuple[float, str, str]:
+    """The bound, what bounds it, and a line that says how."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "bytes" if bytes_ms >= ops["ms"] else "operations"
+    how = (f"bytes {bytes_ms:.4f} ms ({nbytes} B); operations {ops['ms']:.4f} ms "
+           f"by {ops['way']} (CUDA cores {ops['cores_ms']:.4f} ms, int8 tensor "
+           f"cores {ops['tensor_ms']:.4f} ms)")
+    return max(bytes_ms, ops["ms"]), by, how
 
 
 def phase_kernel_build(build_dir: Path) -> None:
     from pgvectorscale_tpu_torch.ops import _build
 
-    _build.load("edge_gather", build_dir=build_dir)
-    rec = _build.build_record("edge_gather")
-    if not rec["compiled"]:
-        fail("the kernel was not compiled from a cold directory")
-    say(f"phase 1 kernel build: edge_gather compiled in {rec['seconds']:.2f}s")
-    for line in rec["ptxas"]:
-        say(f"  {line}")
+    for rec in _build.build(KERNELS, build_dir=build_dir):
+        if not rec["compiled"]:
+            fail(f"{rec['name']} was not compiled from a cold directory")
+        say(f"phase 1 kernel build: {rec['name']} compiled in {rec['seconds']:.2f}s")
+        for line in rec["ptxas"]:
+            say(f"  {line}")
+        _build.load(rec["name"], build_dir=build_dir)
     check_deadline("kernel build")
 
 
-def phase_kernel_check(cap_main: int) -> dict:
+def phase_kernel_check(cap_main: int, card: dict) -> dict:
+    return {"edge_gather": check_edge_gather(cap_main, card),
+            "hamming_matrix": check_hamming_matrix(card)}
+
+
+def check_edge_gather(cap_main: int, card: dict) -> dict:
     import torch
 
     from pgvectorscale_tpu_torch.ops import edge_gather as eg
@@ -174,30 +246,113 @@ def phase_kernel_check(cap_main: int) -> dict:
                 lambda i: eg.hamming_edge_gather_plain(edge, sels[i % 8], qc, r_max=r), 16)
             rows = int(torch.unique(sels[0]).numel())
             nbytes = eg.bound_bytes(q, e, r, w, rows)
-            ops = 3 * q * e * r * w  # xor, popcount, add per word
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / INT32_OPS_PER_S * 1e3
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                          shape=dict(q=q, e=e, r=r, w=w, cap=cap, rows=rows),
-                          bound_bytes=nbytes)
+            bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, q * e * r, w))
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None, bound_how=how,
+                          shape=dict(q=q, e=e, r=r, w=w, cap=cap, rows=rows))
             say(f"  edge_gather timing at Q={q} E={e}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-                f"({nbytes} bytes)")
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how})")
         del edge, sel, qc, got, want
-    say(f"phase 2 kernel vs plain: all {len(shapes)} shapes equal")
+    say(f"phase 2 kernel vs plain: edge_gather equal at all {len(shapes)} shapes")
     check_deadline("kernel vs plain")
     timing["max_abs_err"] = max_err
     return timing
 
 
-def phase_build(vectors):
+def popcount_dot(qc, cc, bits: int):
+    """The Hamming matrix as a library matrix product (the yardstick, not
+    used by the port): unpack to 0/1 fp16, one fp16 matmul with fp32
+    accumulation (exact while bits <= 2,048), pop_a + pop_b - 2 * dot."""
+    import torch
+
+    from pgvectorscale_tpu_torch.graph.prune import unpack_code_bits
+
+    a = unpack_code_bits(qc, bits).half()
+    b = unpack_code_bits(cc, bits).half()
+    dot = torch.matmul(a, b.T).to(torch.int32)
+    pa = a.sum(dim=1, dtype=torch.int32)
+    pb = b.sum(dim=1, dtype=torch.int32)
+    return pa[:, None] + pb[None, :] - 2 * dot
+
+
+def check_hamming_matrix(card: dict) -> dict:
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import hamming_matrix as hm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    # (q, n, w): the 100k storage build's seed wave, the first add into a
+    # 2,048-row index (grown to 6,144 rows), the TPU kernel tests' shapes,
+    # and a ragged wide one (16,000 dims at 1 bit).
+    shapes = [(4096, 8192, 48), (4096, 6144, 48), (8, 16, 1), (100, 130, 8),
+              (128, 256, 48), (333, 1000, 500)]
+    max_err = 0
+    timing = None
+    for q, n, w in shapes:
+        qc = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
+                           device="cuda", generator=g)
+        cc = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
+                           device="cuda", generator=g)
+        got = hm.hamming_matrix(qc, cc)
+        want = hm.hamming_matrix_plain(qc, cc)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        err = int((got - want).abs().max())
+        max_err = max(max_err, err)
+        say(f"  hamming_matrix Q={q} N={n} W={w}: {'equal' if ok else 'DIFFERENT'} "
+            f"(max abs err {err})")
+        if not ok:
+            fail(f"hamming_matrix differs from its plain version at {(q, n, w)}")
+        if timing is None:
+            prev = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+            try:
+                lib_ok = torch.equal(popcount_dot(qc, cc, 32 * w), got)
+                ms = cuda_time_ms(lambda i: hm.hamming_matrix(qc, cc), 50)
+                plain_ms = cuda_time_ms(lambda i: hm.hamming_matrix_plain(qc, cc), 3, 1)
+                library_ms = cuda_time_ms(lambda i: popcount_dot(qc, cc, 32 * w), 50)
+            finally:
+                torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = prev
+            if not lib_ok:
+                fail("the popcount-dot yardstick differs from the kernel")
+            nbytes = hm.bound_bytes(q, n, w)
+            bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, q * n, w))
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms, bound_how=how, shape=dict(q=q, n=n, w=w))
+            say(f"  hamming_matrix timing at Q={q} N={n} W={w}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, popcount-dot matmul {library_ms:.4f} ms "
+                f"(equal to the kernel), bound {bound_ms:.4f} ms ({bound_by}: {how})")
+        del qc, cc, got, want
+    say(f"phase 2 kernel vs plain: hamming_matrix equal at all {len(shapes)} shapes")
+    check_deadline("kernel vs plain")
+    timing["max_abs_err"] = max_err
+    return timing
+
+
+def check_graph(index, label: str) -> str:
+    """Full reachability from the start node and degree <= r_max, or fail;
+    returns a one-line summary."""
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+
+    n = index.count
+    reach = int(reachable_on_device(index.arrays)[:n].sum())
+    deg = (index.arrays.adjacency[:n] != -1).sum(dim=1)
+    max_deg, min_deg = int(deg.max()), int(deg.min())
+    r_max = index.config.max_neighbors_during_build
+    if reach != n:
+        fail(f"{label}: {n - reach} rows are unreachable")
+    if max_deg > r_max:
+        fail(f"{label}: max degree {max_deg} exceeds r_max {r_max}")
+    return (f"reachable {reach}/{n}, orphans {n - reach}, degree {min_deg}..{max_deg} "
+            f"(r_max {r_max}), mean {float(deg.float().mean()):.2f}")
+
+
+def phase_build(vectors, build_distance: str, phase: str):
     import torch
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
-    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
 
-    config = IndexConfig(num_dimensions=DIM)
+    config = IndexConfig(num_dimensions=DIM, build_distance=build_distance)
     marks = {}
 
     def progress(stage, done, total):
@@ -212,40 +367,37 @@ def phase_build(vectors):
             say("  waves done, finalizing")
         else:
             marks["finalize"] = elapsed()
-        check_deadline("build")
+        check_deadline(phase)
 
     t = elapsed()
     index = DiskannIndex.build(vectors, config, progress_callback=progress)
     torch.cuda.synchronize()
-    n = index.count
-    reach = int(reachable_on_device(index.arrays)[:n].sum())
-    deg = (index.arrays.adjacency[:n] != -1).sum(dim=1)
-    max_deg, min_deg = int(deg.max()), int(deg.min())
     times = dict(
         ingest_s=marks["ingest"] - t,
         waves_s=marks["waves"] - marks["ingest"],
         finalize_s=marks["finalize"] - marks["waves"],
         total_s=elapsed() - t,
     )
-    say(f"phase 3 build: {n} rows, ingest {times['ingest_s']:.2f}s, waves "
-        f"{times['waves_s']:.2f}s, finalize {times['finalize_s']:.2f}s; reachable "
-        f"{reach}/{n}, orphans {n - reach}, degree {min_deg}..{max_deg} "
-        f"(r_max {config.max_neighbors_during_build}), mean {float(deg.float().mean()):.2f}")
-    if reach != n:
-        fail(f"{n - reach} rows are unreachable")
-    if max_deg > config.max_neighbors_during_build:
-        fail(f"max degree {max_deg} exceeds r_max")
-    check_deadline("build")
+    say(f"{phase}: {build_distance}, {index.count} rows, ingest {times['ingest_s']:.2f}s, "
+        f"waves {times['waves_s']:.2f}s, finalize {times['finalize_s']:.2f}s; "
+        f"{check_graph(index, phase)}")
+    check_deadline(phase)
     return index, times
 
 
-def phase_search(index, vectors, queries):
+def recall_at_10(ids, gt) -> float:
+    hits = (ids[:, :, None] == gt[:, None, :]).any(dim=2).sum()
+    return float(hits) / (ids.shape[0] * 10)
+
+
+def phase_search(index, vectors, queries, phase: str):
     import torch
 
     from pgvectorscale_tpu_torch import ExactIndex, QueryParams
 
     exact = ExactIndex.build(vectors, index.config)
     gt, _ = exact.search(queries, 10)
+    del exact
     qdev = torch.as_tensor(queries).cuda()
     index._edge_code_cache()  # built once, outside the timed searches
     results = {}
@@ -260,16 +412,123 @@ def phase_search(index, vectors, queries):
             secs.append(time.perf_counter() - t)
         if ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all()):
             fail(f"search at rescore {rescore} returned bad shape or distances")
-        hits = (ids[:, :, None] == gt[:, None, :]).any(dim=2).sum()
-        recall = float(hits) / (NQ * 10)
+        recall = recall_at_10(ids, gt)
         best = min(secs)
         results[rescore] = dict(recall=recall, qps=NQ / best, seconds=secs,
                                 iters=index.last_search.iters)
         say(f"  rescore {rescore}: recall@10 {recall:.4f}, QPS {NQ / best:.1f} "
             f"(best of {[round(s, 4) for s in secs]} s), beam iterations "
             f"{index.last_search.iters}")
-    check_deadline("search")
+    if results[300]["recall"] < MIN_RECALL:
+        fail(f"{phase}: recall@10 at rescore 300 is below {MIN_RECALL}")
+    check_deadline(phase)
     return results
+
+
+def phase_life_cycle(vectors, queries) -> dict:
+    """Build small, stream adds, delete, reuse tombstones, search, save and
+    load, compact: the index life cycle in storage mode, 768 wide."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import DiskannIndex, ExactIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch.ops import hamming_matrix
+
+    phase = "life cycle"
+    config = IndexConfig(num_dimensions=DIM, build_distance="storage")
+    out = {}
+    t = elapsed()
+    index = DiskannIndex.build(vectors[:LC_BUILD], config)
+    out["build_s"] = elapsed() - t
+    # Internal id -> the input row stored there, from the ids that build
+    # and add return: the recall oracle is built from the input, not from
+    # what the index stored.
+    row_of = {i: i for i in range(LC_BUILD)}
+    pos = LC_BUILD
+    t = elapsed()
+    for b in range(LC_BATCHES):
+        before = hamming_matrix.launches
+        ids = index.add(vectors[pos : pos + LC_BATCH])
+        torch.cuda.synchronize()
+        if b == 0:
+            out["first_add_hamming_matrix_launches"] = hamming_matrix.launches - before
+            if hamming_matrix.launches == before:
+                fail(f"{phase}: the first add's seed wave did not launch hamming_matrix")
+        if not np.array_equal(ids, np.arange(pos, pos + LC_BATCH)):
+            fail(f"{phase}: add batch {b} returned unexpected ids")
+        row_of.update(zip(ids.tolist(), range(pos, pos + LC_BATCH)))
+        pos += LC_BATCH
+        check_deadline(phase)
+    out["adds_s"] = elapsed() - t
+    say(f"  {phase}: built {LC_BUILD} rows in {out['build_s']:.2f}s, added "
+        f"{LC_BATCHES} x {LC_BATCH} in {out['adds_s']:.2f}s; "
+        f"{check_graph(index, phase)}")
+
+    rng = np.random.default_rng(SEED)
+    doomed = rng.choice(index.count, int(LC_DELETE * index.count), replace=False)
+    index.delete(doomed)
+    t = elapsed()
+    reused = index.add(vectors[pos : pos + LC_REUSE])
+    torch.cuda.synchronize()
+    out["reuse_add_s"] = elapsed() - t
+    row_of.update(zip(reused.tolist(), range(pos, pos + LC_REUSE)))
+    pos += LC_REUSE
+    if not np.isin(reused, doomed).all() or len(np.unique(reused)) != LC_REUSE:
+        fail(f"{phase}: the add did not land on {LC_REUSE} tombstoned ids")
+    say(f"  {phase}: deleted {len(doomed)} rows, added {LC_REUSE} onto tombstones in "
+        f"{out['reuse_add_s']:.2f}s; {index.num_deleted} tombstones left, "
+        f"{index.num_live} live; {check_graph(index, phase)}")
+
+    live_np = np.nonzero(~index._deleted_np[: index.count])[0]
+    live = torch.from_numpy(live_np).cuda()
+    exact = ExactIndex.build(vectors[[row_of[i] for i in live_np.tolist()]], config)
+    gt = live[exact.search(queries, 10)[0].long()].to(torch.int32)
+    del exact
+    qdev = torch.as_tensor(queries).cuda()
+    deleted = index.arrays.deleted
+    for rescore in (50, 300):
+        ids, dists = index.search(qdev, 10, QueryParams(search_list_size=100, rescore=rescore))
+        torch.cuda.synchronize()
+        if ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all()):
+            fail(f"{phase}: search at rescore {rescore} returned bad shape or distances")
+        if bool(deleted[ids.clamp_min(0).long()].any()):
+            fail(f"{phase}: a search returned a deleted row")
+        out[f"recall_{rescore}"] = recall_at_10(ids, gt)
+    say(f"  {phase}: recall@10 over {index.num_live} live rows {out['recall_50']:.4f} "
+        f"(rescore 50), {out['recall_300']:.4f} (rescore 300); no deleted row returned")
+    if out["recall_300"] < MIN_RECALL:
+        fail(f"{phase}: recall@10 at rescore 300 is below {MIN_RECALL}")
+
+    with tempfile.TemporaryDirectory() as td:
+        t = elapsed()
+        index.save(Path(td) / "index")
+        out["save_s"] = elapsed() - t
+        out["checkpoint_bytes"] = (Path(td) / "index.npz").stat().st_size
+        t = elapsed()
+        loaded = DiskannIndex.load(Path(td) / "index")
+        torch.cuda.synchronize()
+        out["load_s"] = elapsed() - t
+    ids2, dists2 = loaded.search(qdev, 10, QueryParams(search_list_size=100, rescore=300))
+    if not (torch.equal(ids, ids2) and torch.equal(dists, dists2)):
+        fail(f"{phase}: the loaded index searches differently")
+    if not np.array_equal(loaded.external_ids, index.external_ids):
+        fail(f"{phase}: the loaded index lost its external ids")
+    del loaded
+
+    t = elapsed()
+    compacted = index.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = elapsed() - t
+    if compacted.count != index.num_live:
+        fail(f"{phase}: compact kept {compacted.count} rows, not {index.num_live}")
+    if not np.array_equal(compacted.external_ids,
+                          index.external_ids[live.cpu().numpy()]):
+        fail(f"{phase}: compact did not keep the external ids")
+    say(f"  {phase}: save {out['save_s']:.2f}s ({out['checkpoint_bytes']} bytes), load "
+        f"{out['load_s']:.2f}s, searches bit-equal; compact to {compacted.count} rows "
+        f"in {out['compact_s']:.2f}s, {check_graph(compacted, phase)}")
+    check_deadline(phase)
+    return out
 
 
 def phase_agreement(index, queries) -> None:
@@ -321,55 +580,96 @@ def main() -> int:
     import numpy as np
 
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
-    from pgvectorscale_tpu_torch.ops import _build, edge_gather
+    from pgvectorscale_tpu_torch.ops import _build, edge_gather, hamming_matrix
+
+    modules = {"edge_gather": edge_gather, "hamming_matrix": hamming_matrix}
+
+    def reset_counts() -> None:
+        for m in modules.values():
+            m.launches = 0
+
+    def read_counts() -> dict:
+        return {k: m.launches for k, m in modules.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name, count, smi_line = phase_device()
+    name, count, smi_line, card = phase_device()
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     build_dir = Path(tempfile.mkdtemp(prefix="cold-", dir=_build.BUILD_DIR))
+    paths = {}  # path -> launches per kernel, counted from 0 around the path
     try:
         phase_kernel_build(build_dir)
         cap_main = ((N + 1023) // 1024) * 1024
-        timing = phase_kernel_check(cap_main)
+        timing = phase_kernel_check(cap_main, card)
 
         vectors, queries = synthetic_corpus("cohere", N, NQ, seed=SEED)
         vectors = np.ascontiguousarray(vectors)
         say(f"  corpus: cohere {vectors.shape} + {queries.shape} queries, seed {SEED}")
-        edge_gather.launches = 0  # the main path starts here
-        index, build_times = phase_build(vectors)
-        launches_build = edge_gather.launches
-        search = phase_search(index, vectors, queries)
-        launches = edge_gather.launches  # the main path ends here
+
+        reset_counts()  # the exact-prune path starts here
+        index, build_times = phase_build(vectors, "exact-prune", "build")
+        in_build = read_counts()
+        say(f"phase 3 build: launches {in_build}")
+        search = phase_search(index, vectors, queries, "search")
+        paths["exact-prune"] = read_counts()  # the exact-prune path ends here
+        eg_build = in_build["edge_gather"]
+        eg_all = paths["exact-prune"]["edge_gather"]
         say(f"phase 4 search: recall@10 {search[50]['recall']:.4f} (rescore 50), "
             f"{search[300]['recall']:.4f} (rescore 300); edge_gather launches "
-            f"{launches} ({launches_build} in build, {launches - launches_build} "
-            f"in search)")
-        if launches_build == 0 or launches == launches_build:
-            fail("the main path did not launch the edge_gather kernel")
-        if search[300]["recall"] < MIN_RECALL:
-            fail(f"recall@10 at rescore 300 is below {MIN_RECALL}")
+            f"{eg_all} ({eg_build} in build, {eg_all - eg_build} in search)")
+        if eg_build == 0 or eg_all == eg_build:
+            fail("the exact-prune path did not launch the edge_gather kernel")
         phase_agreement(index, queries)
+        del index
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the storage path starts here
+        s_index, s_build_times = phase_build(vectors, "storage", "storage build")
+        s_in_build = read_counts()
+        say(f"phase 6 storage build: launches {s_in_build}")
+        s_search = phase_search(s_index, vectors, queries, "storage search")
+        paths["storage"] = read_counts()  # the storage path ends here
+        say(f"phase 6 storage search: recall@10 {s_search[50]['recall']:.4f} "
+            f"(rescore 50), {s_search[300]['recall']:.4f} (rescore 300); "
+            f"launches {paths['storage']}")
+        if s_in_build["hamming_matrix"] < 1 or s_in_build["edge_gather"] == 0:
+            fail("the storage build did not launch both kernels")
+        del s_index
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the life-cycle path starts here
+        life = phase_life_cycle(vectors, queries)
+        paths["life cycle"] = read_counts()  # the life-cycle path ends here
+        say(f"phase 7 life cycle: launches {paths['life cycle']}")
+        if min(paths["life cycle"].values()) == 0:
+            fail("the life cycle did not launch both kernels")
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 
+    replaces = {"edge_gather": "pgvectorscale_tpu/ops/pallas_hamming.py:183",
+                "hamming_matrix": "pgvectorscale_tpu/ops/pallas_hamming.py:52"}
     kernels = {"kernels": [{
-        "name": "edge_gather",
+        "name": k,
         "route": "cuda",
-        "source": "pgvectorscale_tpu_torch/csrc/edge_gather.cu",
-        "replaces": "pgvectorscale_tpu/ops/pallas_hamming.py:183",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }]}
+        "source": f"pgvectorscale_tpu_torch/csrc/{k}.cu",
+        "replaces": replaces[k],
+        "launches": sum(p[k] for p in paths.values()),
+        "max_abs_err": timing[k]["max_abs_err"],
+        "ms": timing[k]["ms"],
+        "plain_ms": timing[k]["plain_ms"],
+        "bound_ms": timing[k]["bound_ms"],
+        "bound_by": timing[k]["bound_by"],
+        "library_ms": timing[k]["library_ms"],
+    } for k in KERNELS]}
     summary = {
-        "build_s": build_times, "kernel_timing_shape": timing["shape"],
-        "search": {str(k): v for k, v in search.items()}, "elapsed_s": elapsed(),
+        "card": card, "launches_by_path": paths,
+        "kernel_timing_shapes": {k: timing[k]["shape"] for k in KERNELS},
+        "kernel_bounds": {k: timing[k]["bound_how"] for k in KERNELS},
+        "build_s": build_times, "search": {str(k): v for k, v in search.items()},
+        "storage_build_s": s_build_times,
+        "storage_search": {str(k): v for k, v in s_search.items()},
+        "life_cycle": life, "elapsed_s": elapsed(),
     }
     say(f"summary {json.dumps(summary)}")
     if elapsed() > BUDGET_S:

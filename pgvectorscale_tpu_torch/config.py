@@ -49,6 +49,14 @@ DEFAULT_QUERY_SEARCH_LIST_SIZE = 100  # guc.rs:3
 DEFAULT_QUERY_RESCORE = 50  # guc.rs:4 (0 disables)
 SBQ_BITS_THRESHOLD_DIM = 900  # meta_page.rs: 2 bits if dims < 900 else 1
 
+# Checkpoint format version (analog of the meta-page version field,
+# meta_page.rs:22-23), shared with the JAX package's checkpoints.  History:
+#   1 — round-1 format (f32 vectors only)
+#   2 — config gains vector_dtype; bf16 vectors stored as uint16 bit views
+#   3 — int8 vector tier: vec_scales array added (ones when not int8)
+CHECKPOINT_VERSION = 3
+CHECKPOINT_MAGIC = 0x2DD17A55
+
 
 def default_bits_per_dimension(num_dimensions_to_index: int) -> int:
     """Reference default: 2 bits/dim below 900 dims, 1 bit/dim above

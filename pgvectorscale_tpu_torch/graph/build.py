@@ -1,12 +1,21 @@
 """Wave-based Vamana graph construction (PyTorch port of ``graph/build.py``).
 
-The JAX package's wave build, on the default SBQ path: candidates come
-from a Hamming beam search over a snapshot edge-code cache (or, while the
-graph is small, from an exact brute-force scan); ``exact-prune``
-re-measures them in full precision; one batched RobustPrune turns them
+The JAX package's wave build for SBQ indexes: candidates come from a
+Hamming beam search over a snapshot edge-code cache (or, while the graph
+is small, from a brute-force scan); one batched RobustPrune turns them
 into neighbour lists; reverse edges are appended with a sort-based
 scatter, and rows that overflow are re-pruned in the same wave.
 ``finalize`` trims every row to R and repairs orphans.
+
+Two build measures (``IndexConfig.build_distance``):
+
+- ``exact-prune`` (default): brute-force seeds, candidate distances and the
+  prune's pairwise distances are full precision; beam-search candidates
+  are re-measured in full precision.
+- ``storage`` (the reference's own build, sbq/mod.rs:161-190): every
+  distance is Hamming on the codes.  The brute-force seed scan goes
+  through the Hamming-matrix kernel, and the prune's pairwise distances
+  come from the popcount-dot identity on unpacked bits.
 
 Every step is batched over the wave.  Python loops run only where the
 JAX package runs a sequential loop: over waves, beam iterations,
@@ -26,8 +35,16 @@ import torch
 
 from ..config import DistanceType, IndexConfig
 from ..distance import gathered_distances
+from ..ops.hamming import hamming_gather
+from ..ops.hamming_matrix import hamming_matrix
 from ..store import INVALID_ID, GraphArrays, dequant_rows
-from .prune import alpha_schedule, pairwise_distance_matrix_full, robust_prune
+from .prune import (
+    alpha_schedule,
+    pairwise_distance_matrix_full,
+    pairwise_hamming_mxu,
+    robust_prune,
+    unpack_code_bits,
+)
 from .search import beam_search
 
 logger = logging.getLogger("pgvectorscale_tpu_torch")
@@ -53,6 +70,9 @@ BRUTE_CANDIDATE_THRESHOLD = 4096
 INCOMING_CAP = 64
 # Orphans chained per repair round.
 _REPAIR_CHAIN_MAX = 4096
+# Above this many code bits the prune's bit unpack is chunked over words,
+# bounding the transient [B, C, bits] f32 tensor (16k-dim indexes).
+_PAIRWISE_CHUNK_BITS = 4096
 _I32_MAX = 2**31 - 1
 
 
@@ -60,14 +80,18 @@ class BuildContext:
     """Build-wide settings derived once from the config."""
 
     def __init__(self, config: IndexConfig):
-        if not (config.uses_sbq and config.build_distance == "exact-prune"):
+        if not config.uses_sbq or config.build_distance == "exact":
             raise NotImplementedError(
-                "the port builds SBQ indexes with build_distance='exact-prune'"
+                "the port builds SBQ indexes with build_distance "
+                "'exact-prune' or 'storage'"
             )
         if config.has_labels:
             raise NotImplementedError("labeled indexes are not ported yet")
         self.config = config
         self.alphas = alpha_schedule(config.max_alpha)
+        # The prune measure: Hamming on codes for "storage", else exact.
+        self.prune_use_codes = config.build_distance == "storage"
+        self.code_bits = config.dims_to_index * config.bits_per_dimension
 
 
 def _set_rows(table: torch.Tensor, row_ids: torch.Tensor, rows) -> torch.Tensor:
@@ -96,24 +120,57 @@ def _exact_distances(arrays, query_vecs, ids, distance_type, trunc_dims):
     return gathered_distances(rows, query_vecs, distance_type)
 
 
+def candidate_pair_distances(
+    arrays: GraphArrays,
+    cand_ids: torch.Tensor,  # i32[B, C]
+    *,
+    use_codes: bool,
+    code_bits: int,
+    distance_type: DistanceType,
+    trunc_dims: int,
+) -> torch.Tensor:
+    """Pairwise distances among each row's candidates, f32[B, C, C]:
+    Hamming on the codes (popcount-dot on unpacked bits) when
+    ``use_codes``, else full precision on the indexed prefix."""
+    safe = cand_ids.clamp_min(0).long()
+    if not use_codes:
+        vecs = dequant_rows(arrays.vectors, safe)[..., :trunc_dims]
+        return pairwise_distance_matrix_full(vecs, distance_type)
+    codes = arrays.codes[safe]  # [B, C, W]
+    if code_bits <= _PAIRWISE_CHUNK_BITS:
+        return pairwise_hamming_mxu(unpack_code_bits(codes, code_bits))
+    # Wide codes: accumulate the popcount-dot over word blocks so at most
+    # [B, C, _PAIRWISE_CHUNK_BITS] bits are unpacked at once.
+    b, c = cand_ids.shape
+    wpc = _PAIRWISE_CHUNK_BITS // 32
+    dots = torch.zeros((b, c, c), dtype=torch.float32, device=cand_ids.device)
+    pops = torch.zeros((b, c), dtype=torch.float32, device=cand_ids.device)
+    for w0 in range(0, codes.shape[-1], wpc):
+        nb = min(code_bits - w0 * 32, wpc * 32)
+        cb = unpack_code_bits(codes[..., w0 : w0 + wpc], nb)
+        dots += torch.bmm(cb, cb.transpose(1, 2))
+        pops += torch.sum(cb, dim=-1)
+    return pops[:, :, None] + pops[:, None, :] - 2.0 * dots
+
+
 def prune_candidate_sets(
     arrays: GraphArrays,
     node_ids: torch.Tensor,  # i32[B]
     cand_ids: torch.Tensor,  # i32[B, C]
     cand_dists: torch.Tensor,  # f32[B, C]
     *,
+    use_codes: bool,
+    code_bits: int,
     distance_type: DistanceType,
     alphas: tuple,
     num_neighbors: int,
     trunc_dims: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched add_neighbors-style prune: candidates -> neighbour lists,
-    with full-precision pairwise distances among the candidates."""
-    vecs = dequant_rows(arrays.vectors, cand_ids.clamp_min(0).long())[
-        ..., :trunc_dims
-    ]
-    pair = pairwise_distance_matrix_full(vecs, distance_type)
-    del vecs
+    """Batched add_neighbors-style prune: candidates -> neighbour lists."""
+    pair = candidate_pair_distances(
+        arrays, cand_ids, use_codes=use_codes, code_bits=code_bits,
+        distance_type=distance_type, trunc_dims=trunc_dims,
+    )
     return robust_prune(
         node_ids, cand_ids, cand_dists, pair,
         num_neighbors=num_neighbors, alphas=alphas,
@@ -200,21 +257,30 @@ def _brute_candidates(
     num_candidates: int,
     distance_type: DistanceType,
     trunc_dims: int,
+    use_codes: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-C candidates over the first ``prefix`` rows, in full
-    precision (the exact-prune build's seed candidates)."""
+    """Top-C candidates over the first ``prefix`` rows in the build's
+    measure: Hamming on the codes through the Hamming-matrix kernel when
+    ``use_codes`` (storage builds), else full precision.  Integer
+    distances tie everywhere; the stable sort keeps the lowest id among
+    ties, as ``lax.top_k`` does."""
     safe_ids = node_ids.clamp_min(0).long()
-    qv = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
-    pts = arrays.vectors[:slice_rows, :trunc_dims]
-    dots = qv @ pts.T
-    if distance_type == DistanceType.L2:
-        q_sq = torch.sum(qv * qv, dim=-1, keepdim=True)
-        c_sq = torch.sum(pts * pts, dim=-1)[None, :]
-        d = torch.clamp_min(q_sq - 2.0 * dots + c_sq, 0.0)
-    elif distance_type == DistanceType.INNER_PRODUCT:
-        d = -dots
+    if use_codes:
+        d = hamming_matrix(
+            arrays.codes[safe_ids], arrays.codes[:slice_rows]
+        ).to(torch.float32)
     else:
-        d = torch.clamp_min(1.0 - dots, 0.0)
+        qv = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
+        pts = arrays.vectors[:slice_rows, :trunc_dims]
+        dots = qv @ pts.T
+        if distance_type == DistanceType.L2:
+            q_sq = torch.sum(qv * qv, dim=-1, keepdim=True)
+            c_sq = torch.sum(pts * pts, dim=-1)[None, :]
+            d = torch.clamp_min(q_sq - 2.0 * dots + c_sq, 0.0)
+        elif distance_type == DistanceType.INNER_PRODUCT:
+            d = -dots
+        else:
+            d = torch.clamp_min(1.0 - dots, 0.0)
     col = torch.arange(slice_rows, device=d.device)[None, :]
     d = torch.where(col < prefix, d, torch.inf)
     dists, ids = torch.sort(d, dim=1, stable=True)
@@ -233,6 +299,8 @@ def _prune_rows_core(
     row_ids: torch.Tensor,  # i32[B] (INVALID_ID padding allowed)
     incoming: torch.Tensor,  # i32[B, W_inc]
     *,
+    use_codes: bool,
+    code_bits: int,
     distance_type: DistanceType,
     alphas: tuple,
     num_neighbors: int,
@@ -244,12 +312,18 @@ def _prune_rows_core(
     existing = arrays.adjacency[safe_rows]
     cand_ids = torch.cat([existing, incoming], dim=1)
     cand_ids = torch.where((row_ids != INVALID_ID)[:, None], cand_ids, INVALID_ID)
-    qv = dequant_rows(arrays.vectors, safe_rows)[:, :trunc_dims]
-    cand_d = _exact_distances(arrays, qv, cand_ids, distance_type, trunc_dims)
+    if use_codes:
+        cand_d = hamming_gather(
+            arrays.codes[safe_rows], arrays.codes, cand_ids
+        ).to(torch.float32)
+    else:
+        qv = dequant_rows(arrays.vectors, safe_rows)[:, :trunc_dims]
+        cand_d = _exact_distances(arrays, qv, cand_ids, distance_type, trunc_dims)
     cand_d = torch.where(cand_ids == INVALID_ID, torch.inf, cand_d)
     cand_ids, cand_d = _dedup_candidates(cand_ids, cand_d)
     nbr_ids, _ = prune_candidate_sets(
         arrays, row_ids, cand_ids, cand_d,
+        use_codes=use_codes, code_bits=code_bits,
         distance_type=distance_type, alphas=alphas,
         num_neighbors=num_neighbors, trunc_dims=trunc_dims,
     )
@@ -264,11 +338,7 @@ def _overflow_prune(
     edge_dst: torch.Tensor,  # i32[E]
     edge_src: torch.Tensor,  # i32[E]
     rejected: torch.Tensor,  # bool[E]
-    *,
-    distance_type: DistanceType,
-    alphas: tuple,
-    num_neighbors: int,
-    trunc_dims: int,
+    **prune_kw,
 ) -> GraphArrays:
     """Re-prune up to MAX_OVERFLOW_ROWS distinct full rows, each with
     candidates = existing + up to INCOMING_CAP rejected reverse edges."""
@@ -299,11 +369,7 @@ def _overflow_prune(
     write_col = rank.clamp(0, INCOMING_CAP - 1)
     incoming = torch.full((m + 1, INCOMING_CAP), INVALID_ID, dtype=torch.int32, device=dev)
     incoming[write_row, write_col] = s_src
-    return _prune_rows_core(
-        arrays, row_ids, incoming[:m],
-        distance_type=distance_type, alphas=alphas,
-        num_neighbors=num_neighbors, trunc_dims=trunc_dims,
-    )
+    return _prune_rows_core(arrays, row_ids, incoming[:m], **prune_kw)
 
 
 def _wave_step(
@@ -321,23 +387,33 @@ def _wave_step(
     alphas: tuple,
     num_neighbors: int,
     trunc_dims: int,
+    prune_use_codes: bool,
+    code_bits: int,
 ) -> GraphArrays:
-    """One wave: candidates, exact re-measure, prune, row writes,
-    backlinks and the overflow prune."""
+    """One wave: candidates, prune, row writes, backlinks and the overflow
+    prune.  Traversal always scores on the codes; ``prune_use_codes``
+    (storage builds) makes the brute-force seeds, the candidate distances
+    and the prune Hamming too, else they are full precision and searched
+    candidates are re-measured (exact-prune)."""
     l = search_list_size
     safe_ids = node_ids.clamp_min(0).long()
-    query_vecs = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
     query_codes = arrays.codes[safe_ids]
+    prune_kw = dict(
+        use_codes=prune_use_codes, code_bits=code_bits,
+        distance_type=distance_type, alphas=alphas,
+        num_neighbors=num_neighbors, trunc_dims=trunc_dims,
+    )
 
     if brute:
-        # Exact candidates over the prefix plus the wave itself, so
-        # intra-wave edges form directly (+1: each node scores itself).
+        # Candidates over the prefix plus the wave itself, so intra-wave
+        # edges form directly (+1: each node scores itself).
         cand_ids, cand_dists = _brute_candidates(
             arrays, node_ids, prefix,
             slice_rows=slice_rows,
             num_candidates=min(l + 1, slice_rows),
             distance_type=distance_type,
             trunc_dims=trunc_dims,
+            use_codes=prune_use_codes,
         )
     else:
         if snap_adjacency is None or snap_edge_codes is None:
@@ -354,15 +430,16 @@ def _wave_step(
             edge_codes=snap_edge_codes,
             expand_factor=min(BUILD_EXPAND_FACTOR, l),
         )
-        cand_ids, _ = _dedup_candidates(res.hist_ids, res.hist_dists)
-        # exact-prune: re-measure the Hamming-generated candidates.
-        ex = _exact_distances(arrays, query_vecs, cand_ids, distance_type, trunc_dims)
-        cand_dists = torch.where(cand_ids == INVALID_ID, torch.inf, ex)
+        cand_ids, cand_dists = _dedup_candidates(res.hist_ids, res.hist_dists)
+        if not prune_use_codes:
+            # exact-prune: re-measure the Hamming-generated candidates.
+            query_vecs = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
+            ex = _exact_distances(arrays, query_vecs, cand_ids, distance_type,
+                                  trunc_dims)
+            cand_dists = torch.where(cand_ids == INVALID_ID, torch.inf, ex)
 
     nbr_ids, _ = prune_candidate_sets(
-        arrays, node_ids, cand_ids, cand_dists,
-        distance_type=distance_type, alphas=alphas,
-        num_neighbors=num_neighbors, trunc_dims=trunc_dims,
+        arrays, node_ids, cand_ids, cand_dists, **prune_kw
     )
 
     rows = torch.nn.functional.pad(
@@ -377,11 +454,7 @@ def _wave_step(
 
     rejected = ~accepted & (edge_dst != INVALID_ID) & (edge_src != INVALID_ID)
     if bool(rejected.any()):
-        arrays = _overflow_prune(
-            arrays, edge_dst, edge_src, rejected,
-            distance_type=distance_type, alphas=alphas,
-            num_neighbors=num_neighbors, trunc_dims=trunc_dims,
-        )
+        arrays = _overflow_prune(arrays, edge_dst, edge_src, rejected, **prune_kw)
     return arrays
 
 
@@ -390,18 +463,33 @@ def insert_wave(
     ctx: BuildContext,
     node_ids: torch.Tensor,  # i32[B] ids of stored rows, INVALID_ID padded
     *,
-    n_existing: int,
-    n_real: int,
+    n_existing: Optional[int] = None,
+    n_real: int = 0,
+    prefix_rows: Optional[int] = None,
     snap_adjacency: Optional[torch.Tensor] = None,
     snap_edge_codes: Optional[torch.Tensor] = None,
 ) -> GraphArrays:
-    """Insert a wave of stored rows whose ids follow the ``n_existing``
-    rows already in the graph."""
+    """Insert a wave of ``n_real`` stored rows (INVALID_ID padded).
+
+    ``n_existing``: the wave's ids follow the ``n_existing`` rows already
+    in the graph, so candidates are rows < n_existing + n_real.
+    ``prefix_rows``: the wave's ids are scattered below ``prefix_rows``
+    (tombstone reuse); candidates are rows < prefix_rows.  Exactly one of
+    the two is given.  While the candidate rows number at most
+    BRUTE_CANDIDATE_THRESHOLD the candidates come from a brute-force scan,
+    else from a beam search over the snapshot."""
+    if (n_existing is None) == (prefix_rows is None):
+        raise ValueError("give exactly one of n_existing and prefix_rows")
     config = ctx.config
     l = config.search_list_size
-    brute = n_existing <= BRUTE_CANDIDATE_THRESHOLD
+    if prefix_rows is not None:
+        brute = prefix_rows <= BRUTE_CANDIDATE_THRESHOLD
+        prefix = prefix_rows
+    else:
+        brute = n_existing <= BRUTE_CANDIDATE_THRESHOLD
+        prefix = n_existing + n_real
     return _wave_step(
-        arrays, node_ids, n_existing + n_real,
+        arrays, node_ids, prefix,
         None if brute else snap_adjacency,
         None if brute else snap_edge_codes,
         search_list_size=l,
@@ -412,6 +500,8 @@ def insert_wave(
         alphas=ctx.alphas,
         num_neighbors=config.num_neighbors,
         trunc_dims=config.dims_to_index,
+        prune_use_codes=ctx.prune_use_codes,
+        code_bits=ctx.code_bits,
     )
 
 
@@ -435,6 +525,7 @@ def finalize(arrays: GraphArrays, ctx: BuildContext) -> GraphArrays:
         )
         arrays = _prune_rows_core(
             arrays, batch, inc,
+            use_codes=ctx.prune_use_codes, code_bits=ctx.code_bits,
             distance_type=config.distance_type, alphas=ctx.alphas,
             num_neighbors=config.num_neighbors, trunc_dims=config.dims_to_index,
         )

@@ -111,6 +111,26 @@ def robust_prune(
     )
 
 
+def pairwise_hamming_mxu(code_bits: torch.Tensor) -> torch.Tensor:
+    """Pairwise Hamming distances among candidates from their unpacked 0/1
+    bits f32[B, C, Db]: hamming(a, b) = pop(a) + pop(b) - 2 * dot(a, b),
+    one batched matrix product.  Sums of 0/1 in float32 are exact (below
+    2**24), so the result is exact.  Returns f32[B, C, C]."""
+    code_bits = code_bits.to(torch.float32)
+    dots = torch.bmm(code_bits, code_bits.transpose(1, 2))
+    pops = torch.sum(code_bits, dim=-1)
+    return pops[:, :, None] + pops[:, None, :] - 2.0 * dots
+
+
+def unpack_code_bits(codes: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """int32[..., W] packed codes -> f32[..., num_bits] 0/1 bits, LSB
+    first (an arithmetic shift by 31 leaves -1, whose low bit is bit 31)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=codes.device)
+    bits = (codes[..., None] >> shifts).bitwise_and_(1)
+    flat = bits.reshape(*codes.shape[:-1], codes.shape[-1] * 32)
+    return flat[..., :num_bits].to(torch.float32)
+
+
 def pairwise_distance_matrix_full(
     vecs: torch.Tensor,  # f32[B, C, D]
     distance_type: DistanceType,

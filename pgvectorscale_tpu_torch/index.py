@@ -1,27 +1,33 @@
-"""DiskannIndex: build and search (PyTorch port of ``index.py``).
+"""DiskannIndex: the index's life cycle (PyTorch port of ``index.py``).
 
-The slice of the JAX package's public index that the default SBQ path
-runs: ``DiskannIndex.build`` (ingest, wave inserts, finalize) and
-``DiskannIndex.search`` with the "expand" rescore window.  Search results
-are internal row ids.
+The slice of the JAX package's public index that unlabeled f32 SBQ
+indexes run: ``build`` (ingest, wave inserts, finalize; ``exact-prune``
+and ``storage`` builds; N may be 0), ``add`` (tombstone reuse first, then
+fresh rows), ``delete`` / ``delete_external``, ``compact``, ``search``
+with the "expand" rescore window, and ``save`` / ``load`` in the JAX
+package's checkpoint format (version 3; versions 1-2 are migrated on
+load).  Search results are internal row ids; ``to_external`` maps them.
 
-``build`` and ``search`` run on ``torch.device("cuda")`` unless the caller
-names another device, and raise when that device is missing.  Float32
-matrix products run in full float32 (TF32 off) for the whole call.
+``build``, ``search``, ``load`` and ``from_jax_state`` run on
+``torch.device("cuda")`` unless the caller names another device, and
+raise when that device is missing.  Float32 matrix products run in full
+float32 (TF32 off) for the whole call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import store
-from .config import DistanceType, IndexConfig, QueryParams
+from .config import CHECKPOINT_MAGIC, CHECKPOINT_VERSION, DistanceType, IndexConfig, QueryParams
 from .distance import gathered_distances, preprocess_query
 from .graph.build import (
     BRUTE_CANDIDATE_THRESHOLD,
@@ -33,7 +39,9 @@ from .graph.build import (
     build_wave_cache,
     finalize,
     insert_wave,
+    repair_orphans,
 )
+from .durability import atomic_write_npz, normalize_ckpt_path
 from .graph.search import _stable_sort_by, beam_search, get_start_ids
 from .ops import sbq
 from .ops.edge_gather import hamming_edge_gather
@@ -196,16 +204,88 @@ def _ingest(raw: torch.Tensor, config: IndexConfig, capacity: int):
     return arrays._replace(count=n), stats
 
 
+def _add_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
+                n0: int, config: IndexConfig) -> GraphArrays:
+    """Normalize and encode with the stored statistics (never retrained)
+    and store at rows [n0, n0 + M), in place (aminsert's create_node)."""
+    m = raw.shape[0]
+    dev = preprocess_query(raw, config.distance_type)
+    arrays.vectors[n0 : n0 + m] = dev
+    arrays.codes[n0 : n0 + m] = sbq.encode(
+        dev[:, : config.dims_to_index], stats, config.bits_per_dimension
+    )
+    return arrays._replace(count=n0 + m)
+
+
+def _reuse_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
+                  rows: torch.Tensor, config: IndexConfig) -> GraphArrays:
+    """Overwrite tombstoned ``rows`` in place: normalize, encode with the
+    stored statistics, clear the tombstone and the outgoing edges (the
+    in-place side of vacuum).  Stale incoming edges stay: they now lead to
+    the new vector."""
+    dev = preprocess_query(raw, config.distance_type)
+    idx = rows.long()
+    arrays.vectors[idx] = dev
+    arrays.codes[idx] = sbq.encode(
+        dev[:, : config.dims_to_index], stats, config.bits_per_dimension
+    )
+    arrays.deleted[idx] = False
+    arrays.adjacency[idx] = INVALID_ID
+    return arrays
+
+
+def _migrate_v1_to_v2(z: dict) -> dict:
+    # v2 added config.vector_dtype (defaulted on read) and uint16 bit views
+    # for bf16 vectors; v1 checkpoints are all-f32, nothing to rewrite.
+    return z
+
+
+def _migrate_v2_to_v3(z: dict) -> dict:
+    # v3 added the int8 vector tier's per-row vec_scales; before it the
+    # scale is the identity.
+    z["vec_scales"] = np.ones(len(z["vectors"]), dtype=np.float32)
+    return z
+
+
+_CHECKPOINT_MIGRATIONS = {1: _migrate_v1_to_v2, 2: _migrate_v2_to_v3}
+
+
+def _migrate_checkpoint(z: dict, version: int) -> dict:
+    """Upgrade a loaded checkpoint dict to CHECKPOINT_VERSION, one version
+    at a time (the reference's meta-page migration on fetch)."""
+    while version < CHECKPOINT_VERSION:
+        migrate = _CHECKPOINT_MIGRATIONS.get(version)
+        if migrate is None:
+            raise ValueError(f"no migration path from checkpoint version {version}")
+        z = migrate(z)
+        version += 1
+    return z
+
+
+def _as_vectors(vectors, device: torch.device) -> torch.Tensor:
+    if not isinstance(vectors, torch.Tensor):
+        vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float32))
+    return vectors.to(device, torch.float32)
+
+
 class DiskannIndex:
     """A StreamingDiskANN index resident in one device's memory."""
 
     def __init__(self, config: IndexConfig, arrays: GraphArrays,
-                 sbq_stats: sbq.SbqStats):
+                 sbq_stats: sbq.SbqStats, external_ids=None):
         self.config = config
         self.arrays = arrays
         self.sbq_stats = sbq_stats
         self._ctx = BuildContext(config)
-        self._num_deleted = int(arrays.deleted[: arrays.count].sum())
+        n = arrays.count
+        if external_ids is None:
+            external_ids = np.arange(n, dtype=np.int64)
+        self.external_ids = np.array(external_ids, dtype=np.int64)  # host [count]
+        if self.external_ids.shape != (n,):
+            raise ValueError(f"external_ids must be [{n}]")
+        # Host mirror of the tombstones: the add free list and the live
+        # count read it without a device round trip.
+        self._deleted_np = arrays.deleted.cpu().numpy().copy()
         self._edge_codes = None  # (arrays, neighbour-code cache of arrays)
         self.last_search = None  # SearchResult of the latest search
 
@@ -215,11 +295,16 @@ class DiskannIndex:
 
     @property
     def count(self) -> int:
+        """Rows in use, tombstoned rows included."""
         return self.arrays.count
 
     @property
+    def num_deleted(self) -> int:
+        return int(self._deleted_np[: self.count].sum())
+
+    @property
     def num_live(self) -> int:
-        return self.count - self._num_deleted
+        return self.count - self.num_deleted
 
     @classmethod
     def build(
@@ -227,19 +312,19 @@ class DiskannIndex:
         vectors,
         config: Optional[IndexConfig] = None,
         *,
+        external_ids=None,
         device=None,
         progress_callback=None,
     ) -> "DiskannIndex":
-        """Build an index over ``vectors`` [N, D] (numpy or a tensor).
+        """Build an index over ``vectors`` [N, D] (numpy or a tensor; N may
+        be 0, which leaves the index empty and its quantizer untrained).
 
         Ingest (normalize, train SBQ, encode) in one pass, then waves of
         up to MAX_WAVE rows (a geometric ramp from INITIAL_WAVE for small
         builds), then finalize.  ``progress_callback(phase, done, total)``
         is called after ingest, after every wave and around finalize."""
         dev = resolve_device(device)
-        if not isinstance(vectors, torch.Tensor):
-            vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float32))
-        vectors = vectors.to(dev, torch.float32)
+        vectors = _as_vectors(vectors, dev)
         if vectors.ndim != 2:
             raise ValueError("vectors must be [N, D]")
         n, d = vectors.shape
@@ -249,17 +334,27 @@ class DiskannIndex:
             raise ValueError(
                 f"config.num_dimensions={config.num_dimensions} != data dim {d}"
             )
-        if n == 0:
-            raise ValueError("the port builds non-empty indexes only")
+        BuildContext(config)  # rejects what the port does not build
+        if external_ids is not None:
+            external_ids = np.asarray(external_ids, dtype=np.int64)
+            if external_ids.shape != (n,):
+                raise ValueError("external_ids must be [N]")
         capacity = max(_round_up(n, 1024), 1024)
+        if n == 0:
+            arrays = store.empty_arrays(config, capacity, dev)
+            stats = sbq.empty_stats(config.dims_to_index, dev)
+            return cls(config, arrays, stats, external_ids)
         with _full_f32():
-            BuildContext(config)  # rejects what the port does not build
             arrays, stats = _ingest(vectors, config, capacity)
             del vectors
-            index = cls(config, arrays, stats)
+            index = cls(config, arrays, stats, external_ids)
             if progress_callback:
                 progress_callback("training quantizer", n, n)
-            index._insert_all(progress_callback)
+            index._insert_ids_into_graph(
+                np.arange(n, dtype=np.int32),
+                initial_wave=MAX_WAVE if n >= 2 * MAX_WAVE else INITIAL_WAVE,
+                progress_callback=progress_callback,
+            )
             if progress_callback:
                 progress_callback("finalizing graph", 0, n)
             index.arrays = finalize(index.arrays, index._ctx)
@@ -267,24 +362,40 @@ class DiskannIndex:
                 progress_callback("finalizing graph", n, n)
         return index
 
-    def _insert_all(self, progress_callback=None) -> None:
-        """Insert rows 0..count-1 in waves: row 0 becomes the default
-        start node, the rest arrive in waves of doubling size."""
+    def _insert_ids_into_graph(
+        self,
+        ids: np.ndarray,  # i32 ids of stored rows
+        *,
+        initial_wave: int = INITIAL_WAVE,
+        full_graph: bool = False,
+        progress_callback=None,
+    ) -> None:
+        """Insert stored rows into the graph in waves of doubling size,
+        from ``initial_wave`` up to MAX_WAVE.  Into an empty graph the
+        first id becomes the default start node.
+
+        ``full_graph``: the ids are scattered through the id space
+        (tombstone reuse), so every row below ``count`` is a candidate,
+        instead of the rows below each wave's first id."""
         arrays = self.arrays
-        n = arrays.count
         dev = arrays.device
-        arrays = arrays._replace(default_start=0)
-        done, pos = 0, 1
-        bucket = MAX_WAVE if n >= 2 * MAX_WAVE else INITIAL_WAVE
+        pos = 0
+        if arrays.default_start == INVALID_ID and len(ids) > 0:
+            arrays = arrays._replace(default_start=int(ids[0]))
+            pos = 1
+        remaining = np.ascontiguousarray(ids[pos:], dtype=np.int32)
+        remaining_dev = torch.from_numpy(remaining).to(dev)
+        done = 0
+        bucket = initial_wave
         snap_adj = snap_cache = None
         waves_since_snap = 0
-        remaining = n - pos
-        while done < remaining:
-            take = min(bucket, remaining - done)
-            first = pos + done
+        while done < len(remaining):
+            take = min(bucket, len(remaining) - done)
+            first = int(remaining[done])
             wave = torch.full((bucket,), INVALID_ID, dtype=torch.int32, device=dev)
-            wave[:take] = torch.arange(first, first + take, dtype=torch.int32, device=dev)
-            if first > BRUTE_CANDIDATE_THRESHOLD and (
+            wave[:take] = remaining_dev[done : done + take]
+            prefix_est = arrays.count if full_graph else first
+            if prefix_est > BRUTE_CANDIDATE_THRESHOLD and (
                 snap_cache is None or waves_since_snap >= BUILD_CACHE_REFRESH_WAVES
             ):
                 # Traversal reads a snapshot; waves write the live rows.
@@ -292,16 +403,203 @@ class DiskannIndex:
                 snap_adj = arrays.adjacency.clone()
                 snap_cache = build_wave_cache(arrays)
                 waves_since_snap = 0
-            arrays = insert_wave(
-                arrays, self._ctx, wave, n_existing=first, n_real=take,
-                snap_adjacency=snap_adj, snap_edge_codes=snap_cache,
-            )
+            if full_graph:
+                arrays = insert_wave(
+                    arrays, self._ctx, wave, prefix_rows=arrays.count,
+                    snap_adjacency=snap_adj, snap_edge_codes=snap_cache,
+                )
+            else:
+                arrays = insert_wave(
+                    arrays, self._ctx, wave, n_existing=first, n_real=take,
+                    snap_adjacency=snap_adj, snap_edge_codes=snap_cache,
+                )
             waves_since_snap += 1
             done += take
             bucket = min(bucket * 2, MAX_WAVE)
             if progress_callback:
-                progress_callback("inserting tuples", done + pos, n)
+                progress_callback("inserting tuples", done + pos, len(ids))
         self.arrays = arrays
+
+    def add(self, vectors, *, external_ids=None) -> np.ndarray:
+        """Insert a batch of vectors [M, D]; returns their internal ids
+        (i32, host).  The analog of aminsert: the quantizer is not
+        retrained (an index built empty stays untrained), tombstoned rows
+        are reused first, the store grows when needed, and the batch is
+        inserted in one wave per MAX_WAVE rows, sized to the smallest power
+        of two from 256 that fits.  Orphans are repaired afterwards."""
+        vectors = _as_vectors(vectors, self.device)
+        if vectors.ndim != 2 or vectors.shape[1] != self.config.num_dimensions:
+            raise ValueError("vectors must be [M, num_dimensions]")
+        m = vectors.shape[0]
+        if m == 0:
+            return np.zeros((0,), dtype=np.int32)
+        if external_ids is None:
+            base = int(self.external_ids.max()) + 1 if len(self.external_ids) else 0
+            external_ids = np.arange(base, base + m, dtype=np.int64)
+        else:
+            external_ids = np.asarray(external_ids, dtype=np.int64)
+            if external_ids.shape != (m,):
+                raise ValueError("external_ids must be [M]")
+
+        n0 = self.count
+        free = np.nonzero(self._deleted_np[:n0])[0]
+        n_reuse = int(min(len(free), m))
+        reuse_rows = free[:n_reuse].astype(np.int32)
+        fresh = m - n_reuse
+        needed = n0 + fresh
+        with _full_f32():
+            if needed > self.arrays.capacity:
+                self.arrays = store.grow(
+                    self.arrays,
+                    max(_round_up(needed, 1024), 2 * self.arrays.capacity),
+                )
+                self._deleted_np = np.concatenate([
+                    self._deleted_np,
+                    np.zeros(self.arrays.capacity - len(self._deleted_np), bool),
+                ])
+            self._edge_codes = None  # the codes change in place
+            arrays = self.arrays
+            if n_reuse:
+                arrays = _reuse_ingest(
+                    arrays, self.sbq_stats, vectors[:n_reuse],
+                    torch.from_numpy(reuse_rows).to(self.device), self.config,
+                )
+                self._deleted_np[reuse_rows] = False
+                self.external_ids[reuse_rows] = external_ids[:n_reuse]
+            if fresh:
+                arrays = _add_ingest(
+                    arrays, self.sbq_stats, vectors[n_reuse:], n0, self.config
+                )
+                self.external_ids = np.concatenate(
+                    [self.external_ids, external_ids[n_reuse:]]
+                )
+            self.arrays = arrays
+            fresh_ids = np.arange(n0, needed, dtype=np.int32)
+            add_bucket = INITIAL_WAVE
+            while add_bucket < min(m, MAX_WAVE):
+                add_bucket *= 2
+            if n_reuse:
+                self._insert_ids_into_graph(
+                    reuse_rows, full_graph=True, initial_wave=add_bucket
+                )
+            if fresh:
+                self._insert_ids_into_graph(fresh_ids, initial_wave=add_bucket)
+            self.arrays = repair_orphans(self.arrays)
+        return np.concatenate([reuse_rows, fresh_ids])
+
+    def delete(self, ids) -> None:
+        """Tombstone rows (ambulkdelete): edges stay, searches traverse
+        them but never return them, and ``add`` reuses them."""
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu().numpy()
+        ids = np.asarray(ids, dtype=np.int32).reshape(-1)
+        if len(ids) == 0:
+            return
+        if (ids < 0).any() or (ids >= self.count).any():
+            raise ValueError("delete ids out of range")
+        self.arrays.deleted[torch.from_numpy(ids).to(self.device).long()] = True
+        self._deleted_np[ids] = True
+
+    def delete_external(self, external_ids) -> None:
+        """Tombstone the rows that carry any of ``external_ids``."""
+        mask = np.isin(self.external_ids, np.asarray(external_ids, dtype=np.int64))
+        self.delete(np.nonzero(mask)[0].astype(np.int32))
+
+    def to_external(self, ids) -> np.ndarray:
+        """Internal row ids (numpy or a tensor) -> external ids, int64;
+        INVALID_ID -> -1."""
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu().numpy()
+        ids = np.asarray(ids)
+        out = np.full(ids.shape, -1, dtype=np.int64)
+        mask = ids >= 0
+        out[mask] = self.external_ids[ids[mask]]
+        return out
+
+    def compact(self) -> "DiskannIndex":
+        """A new index over the live rows, rebuilt on the same device; the
+        external ids are kept."""
+        live = np.nonzero(~self._deleted_np[: self.count])[0]
+        vectors = self.arrays.vectors[torch.from_numpy(live).to(self.device)]
+        return DiskannIndex.build(
+            vectors, self.config, external_ids=self.external_ids[live],
+            device=self.device,
+        )
+
+    def save(self, path) -> None:
+        """Write the JAX package's checkpoint format (version 3, f32 tier,
+        no labels) to ``path`` (``.npz`` appended when missing),
+        atomically."""
+        path = normalize_ckpt_path(path)
+        host = store.to_host(self.arrays)
+        n = self.count
+        atomic_write_npz(path, dict(
+            magic=np.int64(CHECKPOINT_MAGIC),
+            version=np.int64(CHECKPOINT_VERSION),
+            config=np.frombuffer(
+                json.dumps(self.config.to_dict()).encode(), dtype=np.uint8
+            ),
+            vectors=host.vectors[:n],
+            vec_scales=host.vec_scales[:n],
+            codes=host.codes[:n],
+            adjacency=host.adjacency[:n],
+            node_labels=host.node_labels[:n],
+            deleted=host.deleted[:n],
+            default_start=host.default_start,
+            label_start_keys=host.label_start_keys,
+            label_start_ids=host.label_start_ids,
+            sbq_count=np.asarray(self.sbq_stats.count, dtype=np.int32),
+            sbq_mean=self.sbq_stats.mean.cpu().numpy(),
+            sbq_m2=self.sbq_stats.m2.cpu().numpy(),
+            external_ids=self.external_ids,
+        ))
+
+    @classmethod
+    def load(cls, path, *, device=None) -> "DiskannIndex":
+        """Read a checkpoint of either package (versions 1-3).  Labeled
+        checkpoints, the bf16/int8 tiers and a mutation journal beside the
+        file are not ported and raise NotImplementedError."""
+        dev = resolve_device(device)
+        path = normalize_ckpt_path(path)
+        if os.path.isdir(path + ".journal"):
+            raise NotImplementedError(
+                "the port does not replay a mutation journal yet"
+            )
+        with np.load(path) as z:
+            if int(z["magic"]) != CHECKPOINT_MAGIC:
+                raise ValueError("not a pgvectorscale_tpu checkpoint")
+            if "sharded" in z and int(z["sharded"]) == 1:
+                raise ValueError("sharded checkpoint; the port loads "
+                                 "single-device checkpoints")
+            version = int(z["version"])
+            if version > CHECKPOINT_VERSION:
+                raise ValueError(
+                    f"checkpoint version {version} is newer than supported "
+                    f"{CHECKPOINT_VERSION}"
+                )
+            z = _migrate_checkpoint({k: z[k] for k in z.files}, version)
+        config = IndexConfig.from_dict(json.loads(bytes(z["config"]).decode()))
+        if config.has_labels or config.vector_dtype != "f32":
+            raise NotImplementedError(
+                "the port loads unlabeled checkpoints of the f32 tier"
+            )
+        n = z["vectors"].shape[0]
+        arrays = store.empty_arrays(config, max(_round_up(n, 1024), 1024), dev)
+
+        def put(dst: torch.Tensor, src: np.ndarray) -> None:
+            dst[:n] = torch.from_numpy(np.ascontiguousarray(src)).to(dev)
+
+        put(arrays.vectors, z["vectors"].astype(np.float32))
+        put(arrays.codes, z["codes"].astype(np.uint32).view(np.int32))
+        put(arrays.adjacency, z["adjacency"].astype(np.int32))
+        put(arrays.deleted, z["deleted"].astype(bool))
+        arrays = arrays._replace(count=n, default_start=int(z["default_start"]))
+        stats = sbq.SbqStats(
+            count=int(z["sbq_count"]),
+            mean=torch.from_numpy(z["sbq_mean"].astype(np.float32)).to(dev),
+            m2=torch.from_numpy(z["sbq_m2"].astype(np.float32)).to(dev),
+        )
+        return cls(config, arrays, stats, z["external_ids"])
 
     def _edge_code_cache(self) -> torch.Tensor:
         """The neighbour-code cache of the current ``arrays`` (every change
@@ -372,11 +670,12 @@ class DiskannIndex:
         return ids, dists
 
 
-def from_jax_state(host_arrays, sbq_stats, config, *, device=None) -> DiskannIndex:
+def from_jax_state(host_arrays, sbq_stats, config, *, external_ids=None,
+                   device=None) -> DiskannIndex:
     """A port index over the JAX package's index state: its
-    ``store.to_host`` arrays, its SBQ statistics (count, mean, m2) and its
-    config.  Codes arrive as uint32
-    and are carried as their int32 bit view."""
+    ``store.to_host`` arrays, its SBQ statistics (count, mean, m2), its
+    config and its external ids (default: the row ids).  Codes arrive as
+    uint32 and are carried as their int32 bit view."""
     dev = resolve_device(device)
     if not isinstance(config, IndexConfig):
         config = IndexConfig.from_dict(config.to_dict())
@@ -386,4 +685,4 @@ def from_jax_state(host_arrays, sbq_stats, config, *, device=None) -> DiskannInd
         mean=torch.tensor(np.asarray(sbq_stats.mean), dtype=torch.float32, device=dev),
         m2=torch.tensor(np.asarray(sbq_stats.m2), dtype=torch.float32, device=dev),
     )
-    return DiskannIndex(config, arrays, stats)
+    return DiskannIndex(config, arrays, stats, external_ids)

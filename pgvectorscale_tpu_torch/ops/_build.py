@@ -26,7 +26,7 @@ NVCC_FLAGS = (
 )
 NVCC_TIMEOUT_S = 300
 
-# name -> (ctypes library, build record) for this process.
+# name -> ctypes library, for this process.
 _LOADED: dict = {}
 
 
@@ -47,51 +47,57 @@ def find_nvcc() -> str:
     )
 
 
-def build(name: str, build_dir: Path | None = None) -> dict:
-    """Compile ``csrc/<name>.cu`` unless a library for the same source and
-    flags exists.  Returns a record with the library path, whether it was
-    compiled now, the seconds that took and nvcc's ``-Xptxas -v`` lines."""
+def build(names, build_dir: Path | None = None) -> list[dict]:
+    """Compile ``csrc/<name>.cu`` for each name unless a library for the
+    same source and flags exists: one nvcc process per missing source, all
+    started together.  Returns one record per name with the library path,
+    whether it was compiled now, the seconds that took and nvcc's
+    ``-Xptxas -v`` lines."""
     build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = build_dir / f"lib{name}_{digest}.so"
-    record = {"name": name, "library": str(lib), "compiled": False,
-              "seconds": 0.0, "ptxas": []}
-    if lib.exists():
-        return record
-    build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = build_dir / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S
-    )
-    record["seconds"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
+    records, running = [], []
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        lib = build_dir / f"lib{name}_{digest}.so"
+        record = {"name": name, "library": str(lib), "compiled": False,
+                  "seconds": 0.0, "ptxas": []}
+        records.append(record)
+        if lib.exists():
+            continue
+        build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = build_dir / f".{lib.name}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-    os.replace(tmp, lib)  # atomic: a reader never sees a partial library
-    record["compiled"] = True
-    record["ptxas"] = [
-        ln for ln in (proc.stdout + proc.stderr).splitlines() if "ptxas" in ln
-    ]
-    return record
+        running.append((record, src, tmp, lib, proc, time.perf_counter()))
+    try:
+        for record, src, tmp, lib, proc, t0 in running:
+            output, _ = proc.communicate(
+                timeout=max(NVCC_TIMEOUT_S - (time.perf_counter() - t0), 1)
+            )
+            record["seconds"] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
+                    f"{output}"
+                )
+            os.replace(tmp, lib)  # atomic: a reader never sees a partial library
+            record["compiled"] = True
+            record["ptxas"] = [ln for ln in output.splitlines() if "ptxas" in ln]
+    finally:
+        for _, _, tmp, _, proc, _ in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return records
 
 
 def load(name: str, build_dir: Path | None = None) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _LOADED:
-        record = build(name, build_dir)
-        _LOADED[name] = (ctypes.CDLL(record["library"]), record)
-    return _LOADED[name][0]
-
-
-def build_record(name: str) -> dict | None:
-    """The build record of a library this process has loaded."""
-    entry = _LOADED.get(name)
-    return None if entry is None else entry[1]
+        _LOADED[name] = ctypes.CDLL(build([name], build_dir)[0]["library"])
+    return _LOADED[name]

@@ -24,6 +24,10 @@ import torch
 from .config import IndexConfig
 
 INVALID_ID = -1
+# The JAX package's empty label table, which every unlabeled checkpoint
+# carries: LABEL_SENTINEL keys and INVALID_ID start nodes.
+LABEL_SENTINEL = 2**31 - 1
+LABEL_TABLE_CAPACITY = 1024
 
 
 class GraphArrays(NamedTuple):
@@ -69,6 +73,24 @@ def empty_arrays(
     )
 
 
+def grow(arrays: GraphArrays, new_capacity: int) -> GraphArrays:
+    """The store with room for ``new_capacity`` rows (the analog of
+    relation extension); new rows are empty."""
+    pad = new_capacity - arrays.capacity
+    if pad <= 0:
+        return arrays
+
+    def pad_rows(x: torch.Tensor, fill) -> torch.Tensor:
+        return torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)])
+
+    return arrays._replace(
+        vectors=pad_rows(arrays.vectors, 0),
+        codes=pad_rows(arrays.codes, 0),
+        adjacency=pad_rows(arrays.adjacency, INVALID_ID),
+        deleted=pad_rows(arrays.deleted, False),
+    )
+
+
 def dequant_rows(vectors: torch.Tensor, idx) -> torch.Tensor:
     """Row gather in compute form (f32 tier: the rows themselves)."""
     return vectors[idx]
@@ -99,8 +121,8 @@ def to_host(arrays: GraphArrays) -> HostArrays:
         deleted=arrays.deleted.cpu().numpy(),
         count=np.asarray(arrays.count, np.int32),
         default_start=np.asarray(arrays.default_start, np.int32),
-        label_start_keys=np.zeros((0,), np.int32),
-        label_start_ids=np.zeros((0,), np.int32),
+        label_start_keys=np.full((LABEL_TABLE_CAPACITY,), LABEL_SENTINEL, np.int32),
+        label_start_ids=np.full((LABEL_TABLE_CAPACITY,), INVALID_ID, np.int32),
         vec_scales=np.ones((cap,), np.float32),
     )
 

@@ -57,6 +57,8 @@ def _wave_kwargs(cfg, ctx_alphas, brute, n):
         alphas=ctx_alphas,
         num_neighbors=cfg.num_neighbors,
         trunc_dims=cfg.dims_to_index,
+        prune_use_codes=False,
+        code_bits=cfg.dims_to_index * cfg.bits_per_dimension,
     )
 
 
@@ -75,8 +77,7 @@ def test_wave_step_and_finalize_match_jax(integer_l2, brute):
         jarrays, jnp.asarray(wave), jnp.asarray(n, jnp.int32),
         snap_adjacency=None if brute else jarrays.adjacency,
         snap_edge_codes=None if brute else jsnap,
-        use_codes=True, prune_use_codes=False, labeled=False,
-        code_bits=cfg.dims_to_index * cfg.bits_per_dimension, **kw,
+        use_codes=True, labeled=False, **kw,
     )
     parrays = pidx.arrays
     kw["distance_type"] = DistanceType.L2
@@ -157,7 +158,7 @@ def test_dedup_and_brute_candidates_match_jax(integer_l2, rng):
     )
     got = build._brute_candidates(
         pidx.arrays, torch.from_numpy(nodes), 500, slice_rows=600, num_candidates=101,
-        distance_type=DistanceType.L2, trunc_dims=32,
+        distance_type=DistanceType.L2, trunc_dims=32, use_codes=False,
     )
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -204,7 +205,7 @@ def test_build_defaults_to_the_card(monkeypatch):
 
 def test_build_rejects_what_the_port_does_not_build():
     v = np.ones((10, 8), np.float32)
-    for cfg in (IndexConfig(num_dimensions=8, build_distance="storage"),
+    for cfg in (IndexConfig(num_dimensions=8, build_distance="exact"),
                 IndexConfig(num_dimensions=8, max_labels_per_vector=2)):
         with pytest.raises(NotImplementedError):
             DiskannIndex.build(v, cfg, device="cpu")

@@ -1,4 +1,4 @@
-"""The edge-gather kernel's wrapper, and the kernel on the card.
+"""The kernels' wrappers, and the kernels on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed (``--noconftest`` skips the JAX setup in conftest):
@@ -10,10 +10,13 @@ and skip without one.  On the card the kernel must equal its plain
 version exactly (integer popcounts: tolerance none).
 """
 
+import os
+import stat
+
 import pytest
 import torch
 
-from pgvectorscale_tpu_torch.ops import edge_gather
+from pgvectorscale_tpu_torch.ops import _build, edge_gather, hamming_matrix
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -29,6 +32,45 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+def _fake_nvcc(tmp_path, monkeypatch, body):
+    """Put an ``nvcc`` on PATH that logs its start and end and runs ``body``
+    with ``$out`` the library it is asked to write."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        f"echo start >> {tmp_path}/log\n"
+        f"{body}\n"
+        f"echo end >> {tmp_path}/log\n"
+    )
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+
+
+def test_build_starts_one_nvcc_per_source_together_and_reuses(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, monkeypatch,
+               'sleep 0.5; echo "ptxas info: fake"; touch "$out"')
+    names = ("edge_gather", "hamming_matrix")
+    records = _build.build(names, build_dir=tmp_path / "libs")
+    assert [r["name"] for r in records] == list(names)
+    assert all(r["compiled"] and os.path.exists(r["library"]) for r in records)
+    assert all(r["ptxas"] == ["ptxas info: fake"] for r in records)
+    # Both started before either ended.
+    assert (tmp_path / "log").read_text().split() == ["start", "start", "end", "end"]
+    again = _build.build(names, build_dir=tmp_path / "libs")
+    assert [r["library"] for r in again] == [r["library"] for r in records]
+    assert not any(r["compiled"] for r in again)
+
+
+def test_build_raises_on_an_nvcc_error_and_leaves_no_library(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, monkeypatch, 'touch "$out"; echo "error: bad"; exit 2')
+    with pytest.raises(RuntimeError, match="error: bad"):
+        _build.build(("edge_gather",), build_dir=tmp_path / "libs")
+    assert os.listdir(tmp_path / "libs") == []
 
 
 def test_edge_gather_wrapper_rejects_bad_inputs():
@@ -47,6 +89,43 @@ def test_edge_gather_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         edge_gather.hamming_edge_gather(edge.to("meta"), sel.to("meta"),
                                         qc.to("meta"), r_max=2)
+
+
+def test_hamming_matrix_wrapper_rejects_bad_inputs():
+    qc = torch.zeros((4, 3), dtype=torch.int32)
+    cc = torch.zeros((5, 3), dtype=torch.int32)
+    before = hamming_matrix.launches
+    assert hamming_matrix.hamming_matrix(qc, cc).shape == (4, 5)  # accepted
+    assert hamming_matrix.launches == before  # the CPU takes the plain version
+    with pytest.raises(TypeError):
+        hamming_matrix.hamming_matrix(qc.long(), cc)
+    with pytest.raises(ValueError):
+        hamming_matrix.hamming_matrix(qc, cc[:, :2])
+    with pytest.raises(ValueError):
+        hamming_matrix.hamming_matrix(qc.t(), cc.t())
+    with pytest.raises(ValueError):
+        hamming_matrix.hamming_matrix(qc.to("meta"), cc.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "q,n,w", [(4096, 8192, 48), (4096, 6144, 48), (8, 16, 1), (100, 130, 8),
+              (128, 256, 48), (333, 1000, 500)]
+)
+def test_hamming_matrix_kernel_matches_plain_on_card(cuda_device, q, n, w):
+    """On the card the kernel launches and equals its plain version at the
+    storage build's shapes, the TPU kernel tests' shapes and a ragged wide
+    one."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    qc = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
+                       device=cuda_device, generator=g)
+    cc = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
+                       device=cuda_device, generator=g)
+    before = hamming_matrix.launches
+    got = hamming_matrix.hamming_matrix(qc, cc)
+    torch.cuda.synchronize()
+    assert hamming_matrix.launches == before + 1
+    assert torch.equal(got, hamming_matrix.hamming_matrix_plain(qc, cc))
 
 
 @pytest.mark.cuda
@@ -104,3 +183,38 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
     for a, b in zip(*results):
         assert torch.equal(a, b)
     assert np.isfinite(results[0][1].numpy()).any()
+
+
+@pytest.mark.cuda
+def test_storage_build_and_add_on_card(cuda_device):
+    """A storage build (L2) on the card and an add into it launch the
+    Hamming-matrix kernel in their seed waves and keep every row
+    reachable; the same add into a CPU copy of the built index (plain
+    versions) gives the same codes and adjacency: every distance of a
+    storage build is an integer, and L2 encodes without normalizing."""
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+    from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    base, _ = synthetic_corpus("glove", 6000, 8, seed=4)
+    config = IndexConfig(num_dimensions=base.shape[1], build_distance="storage",
+                         distance_type=DistanceType.L2)
+    before = hamming_matrix.launches
+    card = DiskannIndex.build(base[:2048], config, device=cuda_device)
+    assert hamming_matrix.launches > before
+    cpu = DiskannIndex(
+        config, card.arrays._replace(**{f: getattr(card.arrays, f).cpu() for f in
+                                        ("vectors", "codes", "adjacency", "deleted")}),
+        sbq.SbqStats(card.sbq_stats.count, card.sbq_stats.mean.cpu(),
+                     card.sbq_stats.m2.cpu()),
+    )
+    before = hamming_matrix.launches
+    card.add(base[2048:])
+    assert hamming_matrix.launches > before
+    cpu.add(base[2048:])
+    n = card.count
+    assert bool(reachable_on_device(card.arrays)[:n].all())
+    assert torch.equal(card.arrays.codes.cpu(), cpu.arrays.codes)
+    assert torch.equal(card.arrays.adjacency.cpu(), cpu.arrays.adjacency)
