@@ -13,11 +13,13 @@ Phases, each reported on a timestamped, flushed line:
    directory (nvcc, plain C interface, ctypes), one nvcc per source, all
    started together.
 2. kernel vs plain: each kernel equals its plain PyTorch version exactly
-   at the main paths' shapes and the TPU kernel tests' shapes; times of
-   both beside the least time the card could take (the larger of the
-   bytes over the memory rate and the operations on the quicker of the
-   CUDA cores' popc pipe and the int8 tensor cores) and, for the Hamming
-   matrix, the popcount-dot matrix product as the library yardstick.
+   at the main paths' shapes and the TPU kernel tests' shapes (the edge
+   gather also at odd W and W % 4 != 0, over random graphs with 23% of
+   the slots invalid, as the built graph has them); times of both beside
+   the least time the card could take (the larger of the bytes over the
+   memory rate and the operations on the quicker of the CUDA cores' popc
+   pipe and the int8 tensor cores) and, for the Hamming matrix, the
+   popcount-dot matrix product as the library yardstick.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -36,10 +38,15 @@ Phases, each reported on a timestamped, flushed line:
    Hamming matrix), ``delete`` of 10%, an ``add`` of 2,048 that lands on
    tombstones, a search that returns no deleted row and holds the recall
    floor over the live rows, ``save``/``load`` with bit-equal search
-   results, and ``compact`` (count == live rows, all reachable).
+   results, and ``compact`` (count == live rows, all reachable).  The
+   reuse add must leave a reader's ``arrays`` (checksum of every tensor)
+   and ``external_ids`` as they were and publish new arrays.
 
 Each path (phases 3-4, 6 and 7) is driven with the kernels' launch counts
 set to 0 just before it and read just after; the kernels line sums them.
+The peak device memory (``torch.cuda.max_memory_allocated``) is reset at
+the start of each build, each search and the life cycle, and read at its
+end; the summary line carries it.
 The run must end within BUDGET_S seconds; each phase has a deadline and
 the builds check it after every wave.  Any failed check exits non-zero.
 Without a CUDA device, or without the package beside this script, it
@@ -73,6 +80,9 @@ DEADLINES = {
     "life cycle": 580,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+# Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
+# 1.98 GHz.
+QUEUE_SLEEP_CYCLES = 39_600_000
 # Per-SM instruction rates per clock, compute capability 9.0 (CUDA C Programming
 # Guide, arithmetic instruction throughput): 32-bit integer add and
 # logical operations, and population count.  They run in separate pipes,
@@ -84,6 +94,9 @@ POPC_PER_CLK_SM = 16
 # cores compute at this rate.
 INT8_TENSOR_OPS_PER_S = 1.979e15
 N, NQ, DIM, SEED = 100_000, 1024, 768, 0
+# Share of INVALID_ID adjacency slots in phase 2's random graphs: the
+# built 100k graph's mean degree is 49.99 of 65 slots.
+INVALID_EDGE_SHARE = 0.23
 MIN_RECALL = 0.80
 # Life cycle: the first build, the add batches, the delete share, the
 # tombstone-reusing add.
@@ -114,17 +127,25 @@ def check_deadline(phase: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn(i)`` over ``iters`` calls, CUDA events."""
+    """Mean device time of ``fn(i)`` over ``iters`` calls, CUDA events.
+    The calls are queued behind a device sleep of QUEUE_SLEEP_CYCLES, so a
+    kernel shorter than the host's launch overhead runs back to back
+    instead of waiting for the host; fails if the sleep ended before the
+    host had queued them all."""
     import torch
 
     for i in range(warmup):
         fn(i)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for i in range(iters):
         fn(i)
     end.record()
+    if start.query():
+        fail(f"the device sleep ended before the host had queued {iters} calls")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -205,8 +226,9 @@ def check_edge_gather(cap_main: int, card: dict) -> dict:
     from pgvectorscale_tpu_torch.ops import edge_gather as eg
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    # (q, e, r_max, w, cap): the search and build shapes of the main
-    # path, then the shapes of the TPU kernel's own tests.
+    # (q, e, r_max, w, cap): the search and build shapes of the main path
+    # (timed), then the shapes of the TPU kernel's own tests, then odd W and
+    # W % 4 != 0 (the kernel's 4-byte-load path).
     shapes = [
         (1024, 4, 65, 48, cap_main),
         (4096, 4, 65, 48, cap_main),
@@ -215,18 +237,29 @@ def check_edge_gather(cap_main: int, card: dict) -> dict:
         (128, 2, 65, 16, 4096),
         (128, 2, 65, 32, 4096),
         (128, 2, 65, 24, 4096),
+        (64, 3, 65, 1, 4096),
+        (64, 2, 65, 25, 4096),
+        (64, 2, 65, 6, 4096),
     ]
-    max_err = 0.0
-    timing = None
-    for q, e, r, w, cap in shapes:
-        edge = torch.randint(-2**31, 2**31 - 1, (cap, r * w), dtype=torch.int32,
+
+    def rand_i32(shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
                              device="cuda", generator=g)
-        sel = torch.randint(0, cap, (q, e), dtype=torch.int32, device="cuda",
-                            generator=g)
-        qc = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
-                           device="cuda", generator=g)
-        got = eg.hamming_edge_gather(edge, sel, qc, r_max=r)
-        want = eg.hamming_edge_gather_plain(edge, sel, qc, r_max=r)
+
+    def rand_ids(cap, shape):
+        return torch.randint(0, cap, shape, dtype=torch.int32, device="cuda", generator=g)
+
+    max_err = 0.0
+    timed = {}
+    for q, e, r, w, cap in shapes:
+        codes = rand_i32((cap, w))
+        adj = rand_ids(cap, (cap, r))
+        adj[torch.rand((cap, r), device="cuda", generator=g) < INVALID_EDGE_SHARE] = -1
+        sel = rand_ids(cap, (q, e))
+        sel[0, 0], sel[-1, -1] = -5, cap + 7  # out-of-range row ids are clamped
+        qc = rand_i32((q, w))
+        got = eg.hamming_edge_gather(codes, adj, sel, qc)
+        want = eg.hamming_edge_gather_plain(codes, adj, sel, qc)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         max_err = max(max_err, err)
@@ -235,28 +268,51 @@ def check_edge_gather(cap_main: int, card: dict) -> dict:
             f"{'equal' if ok else 'DIFFERENT'} (max abs err {err})")
         if not ok:
             fail(f"edge_gather differs from its plain version at {(q, e, r, w)}")
-        if timing is None:
-            # Rotate over 8 row selections (8 x ~51 MB of rows, well past
-            # the 50 MB L2) so the timed rows come cold, as in a search.
-            sels = [torch.randint(0, cap, (q, e), dtype=torch.int32, device="cuda",
-                                  generator=g) for _ in range(8)]
+        if cap == cap_main:
+            # One codes table and adjacency of the index's size, 8 frontier
+            # draws in turn, as a search meets them.
+            sels = [rand_ids(cap, (q, e)) for _ in range(8)]
             ms = cuda_time_ms(
-                lambda i: eg.hamming_edge_gather(edge, sels[i % 8], qc, r_max=r), 48)
+                lambda i: eg.hamming_edge_gather(codes, adj, sels[i % 8], qc), 48)
             plain_ms = cuda_time_ms(
-                lambda i: eg.hamming_edge_gather_plain(edge, sels[i % 8], qc, r_max=r), 16)
-            rows = int(torch.unique(sels[0]).numel())
-            nbytes = eg.bound_bytes(q, e, r, w, rows)
+                lambda i: eg.hamming_edge_gather_plain(codes, adj, sels[i % 8], qc), 16)
+            # The bytes each draw must move, from its own distinct rows.
+            draws = []
+            for s in sels:
+                nbrs = adj[s.long()].clamp(0, cap - 1)
+                draws.append((int(torch.unique(s).numel()), int(torch.unique(nbrs).numel())))
+            nbytes = sum(eg.bound_bytes(q, e, r, w, a, b) for a, b in draws) // len(draws)
             bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, q * e * r, w))
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None, bound_how=how,
-                          shape=dict(q=q, e=e, r=r, w=w, cap=cap, rows=rows))
+            l2 = eg.l2_bytes(q, e, r, w)
+            timed[q] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bound_how=how, l2_bytes=l2,
+                shape=dict(q=q, e=e, r=r, w=w, cap=cap,
+                           sel_rows=[a for a, _ in draws], nbr_rows=[b for _, b in draws]),
+            )
             say(f"  edge_gather timing at Q={q} E={e}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how})")
-        del edge, sel, qc, got, want
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how}); "
+                f"code-row bytes the lanes read, L2 hits included: {l2} B "
+                f"(for information, no rate claimed)")
+        del codes, adj, sel, qc, got, want
     say(f"phase 2 kernel vs plain: edge_gather equal at all {len(shapes)} shapes")
     check_deadline("kernel vs plain")
+    timing = dict(timed[1024])  # the kernels line reports the search shape
     timing["max_abs_err"] = max_err
+    timing["by_q"] = {str(q): {k: v for k, v in t.items() if k != "bound_how"}
+                      for q, t in timed.items()}
     return timing
+
+
+def checksum(t) -> int:
+    """A position-weighted sum of a tensor's 32-bit words (or bytes, for
+    1-byte types), mod 2**64."""
+    import torch
+
+    x = t.contiguous().view(-1)
+    x = (x.view(torch.int32) if x.element_size() == 4 else x.view(torch.uint8)).to(torch.int64)
+    weights = torch.arange(x.numel(), dtype=torch.int64, device=x.device) % 65521 + 1
+    return int((x * weights).sum())
 
 
 def popcount_dot(qc, cc, bits: int):
@@ -399,7 +455,7 @@ def phase_search(index, vectors, queries, phase: str):
     gt, _ = exact.search(queries, 10)
     del exact
     qdev = torch.as_tensor(queries).cuda()
-    index._edge_code_cache()  # built once, outside the timed searches
+    torch.cuda.reset_peak_memory_stats()  # the searches' peak, without the oracle's
     results = {}
     for rescore in (50, 300):
         params = QueryParams(search_list_size=100, rescore=rescore)
@@ -421,8 +477,10 @@ def phase_search(index, vectors, queries, phase: str):
             f"{index.last_search.iters}")
     if results[300]["recall"] < MIN_RECALL:
         fail(f"{phase}: recall@10 at rescore 300 is below {MIN_RECALL}")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  {phase}: peak device memory {peak} B")
     check_deadline(phase)
-    return results
+    return results, peak
 
 
 def phase_life_cycle(vectors, queries) -> dict:
@@ -467,10 +525,25 @@ def phase_life_cycle(vectors, queries) -> dict:
     rng = np.random.default_rng(SEED)
     doomed = rng.choice(index.count, int(LC_DELETE * index.count), replace=False)
     index.delete(doomed)
+    # What a concurrent reader holds: the add must leave it as it was.
+    held, held_ext = index.arrays, index.external_ids
+    held_ext_copy = held_ext.copy()
+    sums = {f: checksum(v) for f, v in zip(held._fields, held) if isinstance(v, torch.Tensor)}
     t = elapsed()
     reused = index.add(vectors[pos : pos + LC_REUSE])
     torch.cuda.synchronize()
     out["reuse_add_s"] = elapsed() - t
+    sums_after = {f: checksum(v) for f, v in zip(held._fields, held)
+                  if isinstance(v, torch.Tensor)}
+    if index.arrays is held:
+        fail(f"{phase}: the reuse add did not publish new arrays")
+    if sums_after != sums:
+        fail(f"{phase}: the reuse add wrote a reader's arrays: {sums} -> {sums_after}")
+    if not np.array_equal(held_ext, held_ext_copy):
+        fail(f"{phase}: the reuse add wrote a reader's external ids")
+    out["snapshot_checksums"] = sums
+    say(f"  {phase}: a reader's arrays ({', '.join(sums)}) and external ids are "
+        f"unchanged by the reuse add; new arrays published")
     row_of.update(zip(reused.tolist(), range(pos, pos + LC_REUSE)))
     pos += LC_REUSE
     if not np.isin(reused, doomed).all() or len(np.unique(reused)) != LC_REUSE:
@@ -535,7 +608,6 @@ def phase_agreement(index, queries) -> None:
     import torch
 
     from pgvectorscale_tpu_torch.distance import preprocess_query
-    from pgvectorscale_tpu_torch.graph.build import build_wave_cache
     from pgvectorscale_tpu_torch.graph.search import beam_search, get_start_ids
     from pgvectorscale_tpu_torch.ops import sbq
 
@@ -554,7 +626,6 @@ def phase_agreement(index, queries) -> None:
         res = beam_search(
             arrays, qc, get_start_ids(arrays, qv.shape[0]),
             search_list_size=100, max_iters=166, expand_factor=4,
-            edge_codes=build_wave_cache(arrays),
         )
         outs.append((qc.cpu(), res.beam_ids.cpu(), res.beam_dists.cpu(),
                      res.hist_ids.cpu()))
@@ -598,6 +669,7 @@ def main() -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     build_dir = Path(tempfile.mkdtemp(prefix="cold-", dir=_build.BUILD_DIR))
     paths = {}  # path -> launches per kernel, counted from 0 around the path
+    peaks = {}  # path -> torch.cuda.max_memory_allocated(), reset at its start
     try:
         phase_kernel_build(build_dir)
         cap_main = ((N + 1023) // 1024) * 1024
@@ -608,10 +680,13 @@ def main() -> int:
         say(f"  corpus: cohere {vectors.shape} + {queries.shape} queries, seed {SEED}")
 
         reset_counts()  # the exact-prune path starts here
+        torch.cuda.reset_peak_memory_stats()
         index, build_times = phase_build(vectors, "exact-prune", "build")
+        peaks["exact-prune build"] = torch.cuda.max_memory_allocated()
         in_build = read_counts()
-        say(f"phase 3 build: launches {in_build}")
-        search = phase_search(index, vectors, queries, "search")
+        say(f"phase 3 build: launches {in_build}; peak device memory "
+            f"{peaks['exact-prune build']} B")
+        search, peaks["exact-prune search"] = phase_search(index, vectors, queries, "search")
         paths["exact-prune"] = read_counts()  # the exact-prune path ends here
         eg_build = in_build["edge_gather"]
         eg_all = paths["exact-prune"]["edge_gather"]
@@ -625,10 +700,14 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         reset_counts()  # the storage path starts here
+        torch.cuda.reset_peak_memory_stats()
         s_index, s_build_times = phase_build(vectors, "storage", "storage build")
+        peaks["storage build"] = torch.cuda.max_memory_allocated()
         s_in_build = read_counts()
-        say(f"phase 6 storage build: launches {s_in_build}")
-        s_search = phase_search(s_index, vectors, queries, "storage search")
+        say(f"phase 6 storage build: launches {s_in_build}; peak device memory "
+            f"{peaks['storage build']} B")
+        s_search, peaks["storage search"] = phase_search(
+            s_index, vectors, queries, "storage search")
         paths["storage"] = read_counts()  # the storage path ends here
         say(f"phase 6 storage search: recall@10 {s_search[50]['recall']:.4f} "
             f"(rescore 50), {s_search[300]['recall']:.4f} (rescore 300); "
@@ -639,9 +718,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         reset_counts()  # the life-cycle path starts here
+        torch.cuda.reset_peak_memory_stats()
         life = phase_life_cycle(vectors, queries)
         paths["life cycle"] = read_counts()  # the life-cycle path ends here
-        say(f"phase 7 life cycle: launches {paths['life cycle']}")
+        peaks["life cycle"] = torch.cuda.max_memory_allocated()
+        say(f"phase 7 life cycle: launches {paths['life cycle']}; peak device memory "
+            f"{peaks['life cycle']} B")
         if min(paths["life cycle"].values()) == 0:
             fail("the life cycle did not launch both kernels")
     finally:
@@ -666,6 +748,8 @@ def main() -> int:
         "card": card, "launches_by_path": paths,
         "kernel_timing_shapes": {k: timing[k]["shape"] for k in KERNELS},
         "kernel_bounds": {k: timing[k]["bound_how"] for k in KERNELS},
+        "edge_gather_by_q": timing["edge_gather"]["by_q"],
+        "peak_memory_bytes": peaks,
         "build_s": build_times, "search": {str(k): v for k, v in search.items()},
         "storage_build_s": s_build_times,
         "storage_search": {str(k): v for k, v in s_search.items()},

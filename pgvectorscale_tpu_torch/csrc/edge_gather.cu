@@ -1,93 +1,161 @@
 // Edge-gather Hamming distances for the SBQ beam search, for sm_90a.
 //
 // Replaces the TPU kernel `hamming_edge_gather_pallas` / `_edge_gather_kernel`
-// (pgvectorscale_tpu/ops/pallas_hamming.py).  For each query q and frontier
-// slot e it reads row sel[q, e] of the edge-code cache (the packed codes of
-// that node's R neighbours, R*W int32 words), XORs it with q's W-word code
-// tiled R times, counts the bits and sums each W-word segment:
+// (pgvectorscale_tpu/ops/pallas_hamming.py).  The TPU kernel reads a flat
+// edge-code cache codes[adjacency] (R*W words per node) because per-row
+// gathers are slow there.  This kernel reads the neighbour codes through
+// the adjacency instead, so no cache exists.  For each query q, frontier
+// slot e and neighbour slot r:
 //
-//   out[q, e*R + r] = sum_w popc(edge_codes[sel[q, e], r*W + w] ^ qcodes[q, w])
+//   nb = adjacency[clamp(sel[q, e], 0, cap-1), r]  (clamped into [0, cap):
+//        an invalid edge, nb < 0, reads row 0, as the cache held it)
+//   out[q, e*R + r] = sum_w popc(codes[nb, w] ^ qcodes[q, w])
 //
-// Bound: bytes.  Each row is read once and never reused, so the floor is
-// Q*E*R*W*4 bytes read plus Q*W*4 read and Q*E*R*4 written over the card's
-// memory rate.  Design: one block per (q, e) row, so Q*E blocks keep the
-// memory system busy; the threads of a warp read consecutive words
-// (coalesced 128-byte transactions); each warp sums the counts of lanes
-// that share a neighbour with __match_any_sync / __reduce_add_sync and one
-// lane per neighbour adds into a shared int accumulator.  Integer sums are
-// the same in any order, so the result is bit-exact.  The TPU's 128-lane
-// row padding and its 0/1 segment-sum matrix have no counterpart here.
+// Bound: bytes.  The codes table (W*4 bytes a row) and the adjacency fit in
+// the H100's 50 MB L2 at 100k rows, so a neighbour row read again within a
+// call comes from L2; the least device-memory traffic is each distinct
+// frontier row's R adjacency entries, each distinct neighbour's code row,
+// the row ids, the query codes and the output, once.  Design:
+// - one neighbour slot per group of G lanes (G a power of two, at most 32,
+//   chosen so a lane reads at most 4 chunks); the grid is flat over the
+//   Q*E*R slots, so there is no idle tail per row and every SM stays full;
+// - a lane issues all of its code and query loads before it uses any:
+//   16-byte loads (int4) when W % 4 == 0 and both tables are 16-byte
+//   aligned, 4-byte loads otherwise; everything goes through the read-only
+//   path (__ldg);
+// - the G lanes sum with __shfl_xor_sync: no shared memory, no atomics;
+// - the query's chunks are loaded beside the code chunks: one query row
+//   serves the E*R*G consecutive lanes of its slots, so it stays in L1 and
+//   adds no step to the chain sel -> adjacency -> codes;
+// - consecutive groups take consecutive slots, so the adjacency reads and
+//   the float writes of a warp are contiguous.
+// Integer sums are the same in any order, so the result is bit-exact.
 //
 // Plain C interface for ctypes: raw pointers, sizes and the caller's
 // stream.  The function launches, allocates nothing, does not synchronise,
 // and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxChunksPerLane = 4;
 
-__global__ void __launch_bounds__(kThreads)
-edge_gather_hamming_kernel(const int* __restrict__ edge_codes,  // [cap, R*W]
-                           const int* __restrict__ sel,         // [Q*E]
-                           const int* __restrict__ qcodes,      // [Q, W]
-                           float* __restrict__ out,             // [Q, E*R]
-                           int e, int r, int w, long long cap) {
-  extern __shared__ int smem[];
-  int* q_words = smem;     // [w]
-  int* acc = smem + w;     // [r + 1]; slot r absorbs the idle tail lanes
+template <int V>
+struct Chunk;
 
-  const long long row_id = blockIdx.x;  // = q * e + slot
-  const long long q = row_id / e;
-  const int rw = r * w;
-
-  for (int i = threadIdx.x; i < w; i += blockDim.x) q_words[i] = qcodes[q * w + i];
-  for (int i = threadIdx.x; i <= r; i += blockDim.x) acc[i] = 0;
-  __syncthreads();
-
-  long long node = sel[row_id];
-  node = node < 0 ? 0 : (node >= cap ? cap - 1 : node);
-  const int* row = edge_codes + node * (long long)rw;
-
-  const int lane = threadIdx.x & 31;
-  // Every thread runs the same number of rounds, so whole warps take part
-  // in the warp-wide reductions; lanes past the row's end add 0 to slot r.
-  const int rounds = (rw + blockDim.x - 1) / blockDim.x;
-  for (int k = 0; k < rounds; ++k) {
-    const int i = k * blockDim.x + threadIdx.x;
-    unsigned pop = 0;
-    int seg = r;
-    if (i < rw) {
-      seg = i / w;
-      pop = __popc(static_cast<unsigned>(__ldg(row + i) ^ q_words[i - seg * w]));
-    }
-    const unsigned peers = __match_any_sync(0xffffffffu, seg);
-    const unsigned sum = __reduce_add_sync(peers, pop);
-    if (lane == __ffs(peers) - 1) atomicAdd(&acc[seg], static_cast<int>(sum));
+template <>
+struct Chunk<4> {
+  using T = int4;
+  __device__ static T zero() { return make_int4(0, 0, 0, 0); }
+  __device__ static unsigned pop_xor(T a, T b) {
+    return __popc(static_cast<unsigned>(a.x ^ b.x)) + __popc(static_cast<unsigned>(a.y ^ b.y)) +
+           __popc(static_cast<unsigned>(a.z ^ b.z)) + __popc(static_cast<unsigned>(a.w ^ b.w));
   }
-  __syncthreads();
+};
 
-  float* out_row = out + row_id * r;
-  for (int i = threadIdx.x; i < r; i += blockDim.x) out_row[i] = static_cast<float>(acc[i]);
+template <>
+struct Chunk<1> {
+  using T = int;
+  __device__ static T zero() { return 0; }
+  __device__ static unsigned pop_xor(T a, T b) { return __popc(static_cast<unsigned>(a ^ b)); }
+};
+
+// V: ints per load (4 or 1).  CPL: chunks a lane loads per round (1-4).
+template <int V, int CPL>
+__global__ void __launch_bounds__(kThreads)
+edge_gather_hamming_kernel(const int* __restrict__ codes,      // [cap, W]
+                           const int* __restrict__ adjacency,  // [cap, R]
+                           const int* __restrict__ sel,        // [Q*E]
+                           const int* __restrict__ qcodes,     // [Q, W]
+                           float* __restrict__ out,            // [Q*E*R]
+                           int slots, int e, int r, int w, int log2g, int cap) {
+  using C = Chunk<V>;
+  using T = typename C::T;
+  const int g = 1 << log2g;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int s = t >> log2g;  // the neighbour slot, q*E*R + e*R + r
+  const int lane_in_group = t & (g - 1);
+  const int chunks = w / V;
+  unsigned pop = 0;
+  if (s < slots) {
+    const int row = s / r;  // q*E + e
+    const int q = row / e;
+    const int node = min(max(__ldg(sel + row), 0), cap - 1);
+    const int nb = min(max(__ldg(adjacency + static_cast<long long>(node) * r + (s - row * r)), 0),
+                       cap - 1);
+    const T* crow = reinterpret_cast<const T*>(codes + static_cast<long long>(nb) * w);
+    const T* qrow = reinterpret_cast<const T*>(qcodes + static_cast<long long>(q) * w);
+    for (int c0 = lane_in_group; c0 < chunks; c0 += CPL * g) {
+      T a[CPL], b[CPL];
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int c = c0 + i * g;
+        a[i] = c < chunks ? __ldg(crow + c) : C::zero();
+        b[i] = c < chunks ? __ldg(qrow + c) : C::zero();
+      }
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) pop += C::pop_xor(a[i], b[i]);
+    }
+  }
+  // Every lane of the warp takes part; lanes past the last slot add 0.
+  for (int off = g >> 1; off > 0; off >>= 1) pop += __shfl_xor_sync(0xffffffffu, pop, off);
+  if (s < slots && lane_in_group == 0) out[s] = static_cast<float>(pop);
+}
+
+template <int V, int CPL>
+void launch(const void* codes, const void* adjacency, const void* sel, const void* qcodes,
+            void* out, int slots, int e, int r, int w, int log2g, int cap, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(slots) << log2g;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  edge_gather_hamming_kernel<V, CPL><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const int*>(codes), static_cast<const int*>(adjacency),
+      static_cast<const int*>(sel), static_cast<const int*>(qcodes), static_cast<float*>(out),
+      slots, e, r, w, log2g, cap);
 }
 
 }  // namespace
 
-extern "C" int pgvs_edge_gather_hamming(const void* edge_codes, const void* sel,
-                                        const void* query_codes, void* out, int q,
-                                        int e, int r, int w, long long cap,
-                                        int device, void* stream) {
-  if (q <= 0 || e <= 0) return static_cast<int>(cudaSuccess);
+// q*e*r*32 must stay below 2**31 (the wrapper checks); cap >= 1.
+extern "C" int pgvs_edge_gather_hamming(const void* codes, const void* adjacency,
+                                        const void* sel, const void* query_codes, void* out,
+                                        int q, int e, int r, int w, int cap, int device,
+                                        void* stream) {
+  if (q <= 0 || e <= 0 || r <= 0) return static_cast<int>(cudaSuccess);
+  if (w <= 0 || cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
   // This library carries its own CUDA runtime, whose current device is
   // separate from the caller's: point it at the device of the tensors.
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(w + r + 1) * sizeof(int);
-  const long long blocks = static_cast<long long>(q) * e;
-  edge_gather_hamming_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(edge_codes), static_cast<const int*>(sel),
-      static_cast<const int*>(query_codes), static_cast<float*>(out), e, r, w, cap);
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(query_codes)) & 15) == 0;
+  const int v = (w % 4 == 0 && aligned) ? 4 : 1;
+  const int chunks = w / v;
+  int log2g = 0;  // the least G (up to 32) that leaves a lane <= 4 chunks
+  while (log2g < 5 && ((chunks + (1 << log2g) - 1) >> log2g) > kMaxChunksPerLane) ++log2g;
+  const int per_lane = (chunks + (1 << log2g) - 1) >> log2g;
+  const int cpl = per_lane < kMaxChunksPerLane ? per_lane : kMaxChunksPerLane;
+  const int slots = q * e * r;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PGVS_LAUNCH(V, CPL) \
+  launch<V, CPL>(codes, adjacency, sel, query_codes, out, slots, e, r, w, log2g, cap, s)
+  if (v == 4) {
+    switch (cpl) {
+      case 1: PGVS_LAUNCH(4, 1); break;
+      case 2: PGVS_LAUNCH(4, 2); break;
+      case 3: PGVS_LAUNCH(4, 3); break;
+      default: PGVS_LAUNCH(4, 4); break;
+    }
+  } else {
+    switch (cpl) {
+      case 1: PGVS_LAUNCH(1, 1); break;
+      case 2: PGVS_LAUNCH(1, 2); break;
+      case 3: PGVS_LAUNCH(1, 3); break;
+      default: PGVS_LAUNCH(1, 4); break;
+    }
+  }
+#undef PGVS_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

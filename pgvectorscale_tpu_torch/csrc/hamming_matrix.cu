@@ -6,12 +6,14 @@
 //
 //   out[q, n] = sum_w popc(qcodes[q, w] ^ codes[n, w])        (int32)
 //
-// Bound: operations, and among them `popc`.  Every (q, n, w) triple costs
-// one XOR, one popc and one add; an SM executes 64 32-bit integer
-// add/logical operations but only 16 popc per clock, so the least time is
-// Q*N*W / (132 SMs * 16 * clock): about 0.39 ms at Q=4096, N=8192, W=48
-// and 1.98 GHz.  The inputs are small (Q*W + N*W words) and the output is
-// Q*N*4 bytes, 0.04 ms at the H100's 3.35 TB/s.
+// Bound: operations, on the int8 tensor cores.  The same matrix is
+// pop(a) + pop(b) - 2 * dot(a, b) over 0/1 bits: two int8 operations per
+// bit pair, Q*N*W*32*2 at the H100 SXM's dense 1,979 TOP/s, about 0.052 ms
+// at Q=4096, N=8192, W=48.  This kernel runs on the CUDA cores instead,
+// where every (q, n, w) triple costs one XOR, one popc and one add and an
+// SM issues only 16 popc per clock: Q*N*W / (132 SMs * 16 * clock), about
+// 0.39 ms at 1.98 GHz, is its own floor.  The inputs are small (Q*W + N*W
+// words) and the output is Q*N*4 bytes, 0.04 ms at 3.35 TB/s.
 //
 // Design: a 2-D grid of 64 x 64 output tiles, 256 threads each.  A block
 // stages its 64 query rows and 64 code rows in shared memory, kChunk words at

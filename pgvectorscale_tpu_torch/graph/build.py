@@ -1,7 +1,7 @@
 """Wave-based Vamana graph construction (PyTorch port of ``graph/build.py``).
 
 The JAX package's wave build for SBQ indexes: candidates come from a
-Hamming beam search over a snapshot edge-code cache (or, while the graph
+Hamming beam search over a snapshot of the adjacency (or, while the graph
 is small, from a brute-force scan); one batched RobustPrune turns them
 into neighbour lists; reverse edges are appended with a sort-based
 scatter, and rows that overflow are re-pruned in the same wave.
@@ -53,9 +53,9 @@ logger = logging.getLogger("pgvectorscale_tpu_torch")
 # throughout; smaller builds ramp up geometrically from INITIAL_WAVE.
 MAX_WAVE = 4096
 INITIAL_WAVE = 256
-# Refresh cadence of the snapshot edge-code cache: traversal runs against
-# a snapshot up to this many waves old, as in the JAX package.
-BUILD_CACHE_REFRESH_WAVES = 4
+# Refresh cadence of the build's adjacency snapshot: traversal runs
+# against a snapshot up to this many waves old, as in the JAX package.
+BUILD_SNAPSHOT_REFRESH_WAVES = 4
 # Rows per re-prune batch in finalize.
 PRUNE_BATCH = 8192
 # Max distinct overflowing rows re-pruned per wave; further rejected
@@ -103,14 +103,6 @@ def _set_rows(table: torch.Tensor, row_ids: torch.Tensor, rows) -> torch.Tensor:
     idx = torch.where((row_ids >= 0) & (row_ids < n), row_ids, n).long()
     ext[idx] = rows
     return ext[:n]
-
-
-def build_wave_cache(arrays: GraphArrays) -> torch.Tensor:
-    """Neighbour-code cache i32[cap, R*W]: row i holds the codes of node
-    i's neighbours, flat (invalid edges gather row 0; searches mask them
-    by id)."""
-    cap = arrays.capacity
-    return arrays.codes[arrays.adjacency.clamp_min(0).long()].reshape(cap, -1)
 
 
 def _exact_distances(arrays, query_vecs, ids, distance_type, trunc_dims):
@@ -377,7 +369,6 @@ def _wave_step(
     node_ids: torch.Tensor,  # i32[B], INVALID_ID padded
     prefix: int,  # rows < prefix may be candidates
     snap_adjacency: Optional[torch.Tensor],  # i32[cap, R] snapshot
-    snap_edge_codes: Optional[torch.Tensor],  # i32[cap, R*W] snapshot
     *,
     search_list_size: int,
     max_iters: int,
@@ -416,9 +407,8 @@ def _wave_step(
             use_codes=prune_use_codes,
         )
     else:
-        if snap_adjacency is None or snap_edge_codes is None:
-            raise ValueError("a searched wave needs the snapshot's adjacency "
-                             "and edge-code cache")
+        if snap_adjacency is None:
+            raise ValueError("a searched wave needs the snapshot's adjacency")
         b = node_ids.shape[0]
         start_ids = torch.full(
             (b, 1), arrays.default_start, dtype=torch.int32, device=arrays.device
@@ -427,7 +417,6 @@ def _wave_step(
             arrays._replace(adjacency=snap_adjacency), query_codes, start_ids,
             search_list_size=l,
             max_iters=max_iters,
-            edge_codes=snap_edge_codes,
             expand_factor=min(BUILD_EXPAND_FACTOR, l),
         )
         cand_ids, cand_dists = _dedup_candidates(res.hist_ids, res.hist_dists)
@@ -467,7 +456,6 @@ def insert_wave(
     n_real: int = 0,
     prefix_rows: Optional[int] = None,
     snap_adjacency: Optional[torch.Tensor] = None,
-    snap_edge_codes: Optional[torch.Tensor] = None,
 ) -> GraphArrays:
     """Insert a wave of ``n_real`` stored rows (INVALID_ID padded).
 
@@ -491,7 +479,6 @@ def insert_wave(
     return _wave_step(
         arrays, node_ids, prefix,
         None if brute else snap_adjacency,
-        None if brute else snap_edge_codes,
         search_list_size=l,
         max_iters=_build_max_iters(l),
         brute=brute,

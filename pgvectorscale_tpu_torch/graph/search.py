@@ -8,8 +8,9 @@ in the JAX package:
   spent (the reference's ``ListSearchResult::visit_closest`` rule).
 - Each step visits the E best unvisited entries, gathers their adjacency
   rows, scores the neighbours (Hamming on SBQ codes through the
-  edge-gather kernel over the edge-code cache), drops duplicates
-  and merges the candidates into the beam with one bitonic merge.
+  edge-gather kernel, which reads the codes through the adjacency), drops
+  duplicates and merges the candidates into the beam with one bitonic
+  merge.
 - The visit history doubles as the build-time candidate set.
 
 The loop is a Python loop over iterations with one host read per
@@ -127,14 +128,13 @@ def beam_search(
     *,
     search_list_size: int,
     max_iters: int,
-    edge_codes: torch.Tensor,  # i32[cap, R*W] flat
     expand_factor: int = 1,
     track_hist: bool = True,
 ) -> SearchResult:
     """Batched greedy beam search over SBQ codes; ``expand_factor`` (E)
     frontier nodes are visited per iteration, ``max_iters`` is the visit
-    budget.  The neighbours are scored by the edge-gather kernel over
-    ``edge_codes``, the adjacency's neighbour-code cache."""
+    budget.  The neighbours are scored by the edge-gather kernel, which
+    reads ``arrays.codes`` through ``arrays.adjacency``."""
     q, s = start_ids.shape
     l = search_list_size
     r_max = arrays.max_degree
@@ -216,7 +216,7 @@ def beam_search(
         valid = valid & ~in_beam
 
         cand_d_raw = hamming_edge_gather(
-            edge_codes, safe_sel.contiguous(), query_codes, r_max=r_max
+            arrays.codes, arrays.adjacency, safe_sel.contiguous(), query_codes
         )
 
         # Dedup within the candidate row: broadcast compare for narrow

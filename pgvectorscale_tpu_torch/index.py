@@ -8,6 +8,14 @@ with the "expand" rescore window, and ``save`` / ``load`` in the JAX
 package's checkpoint format (version 3; versions 1-2 are migrated on
 load).  Search results are internal row ids; ``to_external`` maps them.
 
+Readers see snapshots, as in the JAX package: ``add`` and ``delete`` never
+write a tensor or host array that ``index.arrays`` or
+``index.external_ids`` held before the call.  They build new ones and
+publish them at the end (the arrays first, then the host mirrors), so a
+search that took ``index.arrays`` keeps a consistent index, and an
+exception inside ``add`` leaves the index as it was.  Callers serialize
+writers.
+
 ``build``, ``search``, ``load`` and ``from_jax_state`` run on
 ``torch.device("cuda")`` unless the caller names another device, and
 raise when that device is missing.  Float32 matrix products run in full
@@ -31,12 +39,11 @@ from .config import CHECKPOINT_MAGIC, CHECKPOINT_VERSION, DistanceType, IndexCon
 from .distance import gathered_distances, preprocess_query
 from .graph.build import (
     BRUTE_CANDIDATE_THRESHOLD,
-    BUILD_CACHE_REFRESH_WAVES,
+    BUILD_SNAPSHOT_REFRESH_WAVES,
     INITIAL_WAVE,
     MAX_WAVE,
     BuildContext,
     _dedup_candidates,
-    build_wave_cache,
     finalize,
     insert_wave,
     repair_orphans,
@@ -82,7 +89,6 @@ def _query_max_iters(l: int, visit_factor: float = 1.0) -> int:
 
 def _expand_rescore_window(
     arrays: GraphArrays,
-    edge_codes: torch.Tensor,  # i32[cap, R*W]
     query_codes: torch.Tensor,  # i32[Q, W]
     beam_ids: torch.Tensor,  # i32[Q, L] ascending by distance
     beam_dists: torch.Tensor,  # f32[Q, L]
@@ -100,7 +106,7 @@ def _expand_rescore_window(
     valid = ((top != INVALID_ID)[:, :, None] & (rows != INVALID_ID)).reshape(
         q, expand_m * r
     )
-    nd = hamming_edge_gather(edge_codes, safe, query_codes, r_max=r)
+    nd = hamming_edge_gather(arrays.codes, arrays.adjacency, safe, query_codes)
     nd = torch.where(valid, nd, torch.inf)
     nbrs = torch.where(valid, nbrs, INVALID_ID)
     return _dedup_candidates(
@@ -153,7 +159,6 @@ def _finalize_results(
 def _search(
     arrays: GraphArrays,
     sbq_stats: sbq.SbqStats,
-    edge_codes: torch.Tensor,
     raw_queries: torch.Tensor,  # f32[Q, D]
     *,
     config: IndexConfig,
@@ -176,13 +181,12 @@ def _search(
         search_list_size=search_list_size,
         max_iters=max_iters,
         expand_factor=expand_factor,
-        edge_codes=edge_codes,
         track_hist=False,
     )
     cand_ids, cand_dists = res.beam_ids, res.beam_dists
     if expand_window_m > 0:
         cand_ids, cand_dists = _expand_rescore_window(
-            arrays, edge_codes, qc, cand_ids, cand_dists, expand_m=expand_window_m
+            arrays, qc, cand_ids, cand_dists, expand_m=expand_window_m
         )
     ids, dists = _finalize_results(
         arrays, qv, cand_ids, cand_dists,
@@ -207,7 +211,8 @@ def _ingest(raw: torch.Tensor, config: IndexConfig, capacity: int):
 def _add_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
                 n0: int, config: IndexConfig) -> GraphArrays:
     """Normalize and encode with the stored statistics (never retrained)
-    and store at rows [n0, n0 + M), in place (aminsert's create_node)."""
+    and store at rows [n0, n0 + M) (aminsert's create_node), in place:
+    ``arrays`` must be the caller's own tensors, never published ones."""
     m = raw.shape[0]
     dev = preprocess_query(raw, config.distance_type)
     arrays.vectors[n0 : n0 + m] = dev
@@ -219,10 +224,11 @@ def _add_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
 
 def _reuse_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
                   rows: torch.Tensor, config: IndexConfig) -> GraphArrays:
-    """Overwrite tombstoned ``rows`` in place: normalize, encode with the
-    stored statistics, clear the tombstone and the outgoing edges (the
-    in-place side of vacuum).  Stale incoming edges stay: they now lead to
-    the new vector."""
+    """Overwrite tombstoned ``rows``: normalize, encode with the stored
+    statistics, clear the tombstone and the outgoing edges (the in-place
+    side of vacuum).  Stale incoming edges stay: they now lead to the new
+    vector.  Writes in place: ``arrays`` must be the caller's own tensors,
+    never published ones."""
     dev = preprocess_query(raw, config.distance_type)
     idx = rows.long()
     arrays.vectors[idx] = dev
@@ -276,7 +282,7 @@ class DiskannIndex:
         self.config = config
         self.arrays = arrays
         self.sbq_stats = sbq_stats
-        self._ctx = BuildContext(config)
+        self._build_ctx = None  # made by the first insert (see _ctx)
         n = arrays.count
         if external_ids is None:
             external_ids = np.arange(n, dtype=np.int64)
@@ -286,8 +292,17 @@ class DiskannIndex:
         # Host mirror of the tombstones: the add free list and the live
         # count read it without a device round trip.
         self._deleted_np = arrays.deleted.cpu().numpy().copy()
-        self._edge_codes = None  # (arrays, neighbour-code cache of arrays)
         self.last_search = None  # SearchResult of the latest search
+
+    @property
+    def _ctx(self) -> BuildContext:
+        """The build settings, made at the first insert: an index the port
+        searches but does not build (an SBQ index built with
+        build_distance "exact") loads and searches, and raises
+        NotImplementedError only when something inserts."""
+        if self._build_ctx is None:
+            self._build_ctx = BuildContext(self.config)
+        return self._build_ctx
 
     @property
     def device(self) -> torch.device:
@@ -350,34 +365,36 @@ class DiskannIndex:
             index = cls(config, arrays, stats, external_ids)
             if progress_callback:
                 progress_callback("training quantizer", n, n)
-            index._insert_ids_into_graph(
-                np.arange(n, dtype=np.int32),
+            arrays = index._insert_ids_into_graph(
+                arrays, np.arange(n, dtype=np.int32),
                 initial_wave=MAX_WAVE if n >= 2 * MAX_WAVE else INITIAL_WAVE,
                 progress_callback=progress_callback,
             )
             if progress_callback:
                 progress_callback("finalizing graph", 0, n)
-            index.arrays = finalize(index.arrays, index._ctx)
+            index.arrays = finalize(arrays, index._ctx)
             if progress_callback:
                 progress_callback("finalizing graph", n, n)
         return index
 
     def _insert_ids_into_graph(
         self,
+        arrays: GraphArrays,
         ids: np.ndarray,  # i32 ids of stored rows
         *,
         initial_wave: int = INITIAL_WAVE,
         full_graph: bool = False,
         progress_callback=None,
-    ) -> None:
-        """Insert stored rows into the graph in waves of doubling size,
-        from ``initial_wave`` up to MAX_WAVE.  Into an empty graph the
-        first id becomes the default start node.
+    ) -> GraphArrays:
+        """``arrays`` with stored rows inserted into the graph in waves of
+        doubling size, from ``initial_wave`` up to MAX_WAVE.  Into an empty
+        graph the first id becomes the default start node.  Publishes
+        nothing.
 
         ``full_graph``: the ids are scattered through the id space
         (tombstone reuse), so every row below ``count`` is a candidate,
         instead of the rows below each wave's first id."""
-        arrays = self.arrays
+        ctx = self._ctx
         dev = arrays.device
         pos = 0
         if arrays.default_start == INVALID_ID and len(ids) > 0:
@@ -387,7 +404,7 @@ class DiskannIndex:
         remaining_dev = torch.from_numpy(remaining).to(dev)
         done = 0
         bucket = initial_wave
-        snap_adj = snap_cache = None
+        snap_adj = None
         waves_since_snap = 0
         while done < len(remaining):
             take = min(bucket, len(remaining) - done)
@@ -396,29 +413,30 @@ class DiskannIndex:
             wave[:take] = remaining_dev[done : done + take]
             prefix_est = arrays.count if full_graph else first
             if prefix_est > BRUTE_CANDIDATE_THRESHOLD and (
-                snap_cache is None or waves_since_snap >= BUILD_CACHE_REFRESH_WAVES
+                snap_adj is None or waves_since_snap >= BUILD_SNAPSHOT_REFRESH_WAVES
             ):
-                # Traversal reads a snapshot; waves write the live rows.
-                snap_cache = None  # never hold two caches at once
+                # Traversal reads a snapshot of the adjacency; waves write
+                # the live rows.  It reads the live codes: codes are written
+                # only at ingest, before any wave, so they equal the codes
+                # of every snapshot.
                 snap_adj = arrays.adjacency.clone()
-                snap_cache = build_wave_cache(arrays)
                 waves_since_snap = 0
             if full_graph:
                 arrays = insert_wave(
-                    arrays, self._ctx, wave, prefix_rows=arrays.count,
-                    snap_adjacency=snap_adj, snap_edge_codes=snap_cache,
+                    arrays, ctx, wave, prefix_rows=arrays.count,
+                    snap_adjacency=snap_adj,
                 )
             else:
                 arrays = insert_wave(
-                    arrays, self._ctx, wave, n_existing=first, n_real=take,
-                    snap_adjacency=snap_adj, snap_edge_codes=snap_cache,
+                    arrays, ctx, wave, n_existing=first, n_real=take,
+                    snap_adjacency=snap_adj,
                 )
             waves_since_snap += 1
             done += take
             bucket = min(bucket * 2, MAX_WAVE)
             if progress_callback:
                 progress_callback("inserting tuples", done + pos, len(ids))
-        self.arrays = arrays
+        return arrays
 
     def add(self, vectors, *, external_ids=None) -> np.ndarray:
         """Insert a batch of vectors [M, D]; returns their internal ids
@@ -426,7 +444,11 @@ class DiskannIndex:
         retrained (an index built empty stays untrained), tombstoned rows
         are reused first, the store grows when needed, and the batch is
         inserted in one wave per MAX_WAVE rows, sized to the smallest power
-        of two from 256 that fits.  Orphans are repaired afterwards."""
+        of two from 256 that fits.  Orphans are repaired afterwards.
+
+        Everything is built on new tensors and published at the end: the
+        arrays, then the tombstone mirror and the external ids."""
+        self._ctx  # raises for what the port does not build, before any work
         vectors = _as_vectors(vectors, self.device)
         if vectors.ndim != 2 or vectors.shape[1] != self.config.num_dimensions:
             raise ValueError("vectors must be [M, num_dimensions]")
@@ -441,55 +463,65 @@ class DiskannIndex:
             if external_ids.shape != (m,):
                 raise ValueError("external_ids must be [M]")
 
-        n0 = self.count
+        arrays = self.arrays
+        n0 = arrays.count
         free = np.nonzero(self._deleted_np[:n0])[0]
         n_reuse = int(min(len(free), m))
         reuse_rows = free[:n_reuse].astype(np.int32)
         fresh = m - n_reuse
         needed = n0 + fresh
+        fresh_ids = np.arange(n0, needed, dtype=np.int32)
         with _full_f32():
-            if needed > self.arrays.capacity:
-                self.arrays = store.grow(
-                    self.arrays,
-                    max(_round_up(needed, 1024), 2 * self.arrays.capacity),
+            if needed > arrays.capacity:
+                # New tensors: the add owns them.
+                arrays = store.grow(
+                    arrays, max(_round_up(needed, 1024), 2 * arrays.capacity)
                 )
-                self._deleted_np = np.concatenate([
-                    self._deleted_np,
-                    np.zeros(self.arrays.capacity - len(self._deleted_np), bool),
-                ])
-            self._edge_codes = None  # the codes change in place
-            arrays = self.arrays
+            else:
+                # Copy before the first write: a reader may hold these.
+                arrays = arrays._replace(
+                    vectors=arrays.vectors.clone(), codes=arrays.codes.clone(),
+                    adjacency=arrays.adjacency.clone(),
+                    deleted=arrays.deleted.clone(),
+                )
             if n_reuse:
                 arrays = _reuse_ingest(
                     arrays, self.sbq_stats, vectors[:n_reuse],
                     torch.from_numpy(reuse_rows).to(self.device), self.config,
                 )
-                self._deleted_np[reuse_rows] = False
-                self.external_ids[reuse_rows] = external_ids[:n_reuse]
             if fresh:
                 arrays = _add_ingest(
                     arrays, self.sbq_stats, vectors[n_reuse:], n0, self.config
                 )
-                self.external_ids = np.concatenate(
-                    [self.external_ids, external_ids[n_reuse:]]
-                )
-            self.arrays = arrays
-            fresh_ids = np.arange(n0, needed, dtype=np.int32)
             add_bucket = INITIAL_WAVE
             while add_bucket < min(m, MAX_WAVE):
                 add_bucket *= 2
             if n_reuse:
-                self._insert_ids_into_graph(
-                    reuse_rows, full_graph=True, initial_wave=add_bucket
+                arrays = self._insert_ids_into_graph(
+                    arrays, reuse_rows, full_graph=True, initial_wave=add_bucket
                 )
             if fresh:
-                self._insert_ids_into_graph(fresh_ids, initial_wave=add_bucket)
-            self.arrays = repair_orphans(self.arrays)
+                arrays = self._insert_ids_into_graph(
+                    arrays, fresh_ids, initial_wave=add_bucket
+                )
+            arrays = repair_orphans(arrays)
+
+        deleted_np = np.zeros(arrays.capacity, dtype=bool)
+        deleted_np[: len(self._deleted_np)] = self._deleted_np
+        deleted_np[reuse_rows] = False
+        ext = np.concatenate([self.external_ids, external_ids[n_reuse:]])
+        ext[reuse_rows] = external_ids[:n_reuse]
+        # Publish: the arrays first, then the host mirrors (new objects, so
+        # a reader's copies stay as they were).
+        self.arrays = arrays
+        self._deleted_np = deleted_np
+        self.external_ids = ext
         return np.concatenate([reuse_rows, fresh_ids])
 
     def delete(self, ids) -> None:
         """Tombstone rows (ambulkdelete): edges stay, searches traverse
-        them but never return them, and ``add`` reuses them."""
+        them but never return them, and ``add`` reuses them.  Publishes a
+        new tombstone tensor, then a new host mirror."""
         if isinstance(ids, torch.Tensor):
             ids = ids.cpu().numpy()
         ids = np.asarray(ids, dtype=np.int32).reshape(-1)
@@ -497,8 +529,13 @@ class DiskannIndex:
             return
         if (ids < 0).any() or (ids >= self.count).any():
             raise ValueError("delete ids out of range")
-        self.arrays.deleted[torch.from_numpy(ids).to(self.device).long()] = True
-        self._deleted_np[ids] = True
+        arrays = self.arrays
+        deleted = arrays.deleted.clone()
+        deleted[torch.from_numpy(ids).to(self.device).long()] = True
+        mirror = self._deleted_np.copy()
+        mirror[ids] = True
+        self.arrays = arrays._replace(deleted=deleted)
+        self._deleted_np = mirror
 
     def delete_external(self, external_ids) -> None:
         """Tombstone the rows that carry any of ``external_ids``."""
@@ -531,8 +568,9 @@ class DiskannIndex:
         no labels) to ``path`` (``.npz`` appended when missing),
         atomically."""
         path = normalize_ckpt_path(path)
-        host = store.to_host(self.arrays)
-        n = self.count
+        arrays, external_ids = self.arrays, self.external_ids
+        host = store.to_host(arrays)
+        n = arrays.count
         atomic_write_npz(path, dict(
             magic=np.int64(CHECKPOINT_MAGIC),
             version=np.int64(CHECKPOINT_VERSION),
@@ -551,7 +589,7 @@ class DiskannIndex:
             sbq_count=np.asarray(self.sbq_stats.count, dtype=np.int32),
             sbq_mean=self.sbq_stats.mean.cpu().numpy(),
             sbq_m2=self.sbq_stats.m2.cpu().numpy(),
-            external_ids=self.external_ids,
+            external_ids=external_ids,
         ))
 
     @classmethod
@@ -601,14 +639,6 @@ class DiskannIndex:
         )
         return cls(config, arrays, stats, z["external_ids"])
 
-    def _edge_code_cache(self) -> torch.Tensor:
-        """The neighbour-code cache of the current ``arrays`` (every change
-        to the graph replaces ``self.arrays``), built at first use."""
-        if self._edge_codes is None or self._edge_codes[0] is not self.arrays:
-            self._edge_codes = None  # never hold two caches at once
-            self._edge_codes = (self.arrays, build_wave_cache(self.arrays))
-        return self._edge_codes[1]
-
     def _needs_rescore(self, params: QueryParams) -> bool:
         """SBQ rescoring runs whenever rescore > 0."""
         return params.rescore > 0
@@ -629,6 +659,7 @@ class DiskannIndex:
             dev.index is not None and dev.index != self.device.index
         ):
             raise ValueError(f"the index lives on {self.device}, not {dev}")
+        arrays = self.arrays  # one snapshot for the whole search
         params = params or QueryParams()
         if params.window_strategy != "expand":
             raise NotImplementedError("the port serves window_strategy='expand'")
@@ -651,13 +682,13 @@ class DiskannIndex:
         beam_width = max(l, window)
         if window > 2 * l + 16:
             beam_width = 2 * l + 16
-            r = self.arrays.max_degree
+            r = arrays.max_degree
             expand_window_m = min(
                 beam_width, max(4, -(-2 * (window - beam_width) // r))
             )
         with _full_f32():
             ids, dists, res = _search(
-                self.arrays, self.sbq_stats, self._edge_code_cache(), queries,
+                arrays, self.sbq_stats, queries,
                 config=config, k=k, search_list_size=beam_width,
                 max_iters=_query_max_iters(
                     l, params.effective_visit_factor(self.num_live)

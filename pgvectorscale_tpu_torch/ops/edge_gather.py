@@ -1,23 +1,30 @@
 """Edge-gather Hamming distances: the beam step's inner loop.
 
 Replaces the TPU kernel ``hamming_edge_gather_pallas`` /
-``_edge_gather_kernel`` (pgvectorscale_tpu/ops/pallas_hamming.py).  For
-each query q and frontier slot e it reads row ``sel[q, e]`` of the flat
-edge-code cache (the packed SBQ codes of that node's R neighbours, R*W
-int32 words), XORs it with q's code tiled R times, counts the bits and sums
-each W-word segment:
+``_edge_gather_kernel`` (pgvectorscale_tpu/ops/pallas_hamming.py).  The
+TPU kernel reads a flat edge-code cache ``codes[adjacency]`` (R*W words a
+node) because small per-row gathers are slow there; on the H100 the codes
+table and the adjacency of a 100k-row index (19 MB and 26 MB) fit in the
+50 MB L2, so the kernel reads the neighbour codes through the adjacency
+and no cache exists.  For each query q, frontier slot e and neighbour r:
 
-    out[q, e*R + r] = sum_w popcount(edge_codes[sel[q, e], r*W + w] ^ query_codes[q, w])
+    nb = adjacency[clamp(sel[q, e], 0, cap - 1), r]    (clamped into [0, cap))
+    out[q, e*R + r] = sum_w popcount(codes[nb, w] ^ query_codes[q, w])
 
-Bound on an H100: bytes.  Each gathered row is read once and used once, so
-the least time is (Q*E*R*W*4 read + Q*W*4 read + Q*E*R*4 written) bytes
-over the card's memory rate: about 51 MB, so 15 us at the H100 SXM's
-data-sheet 3.35 TB/s, at Q=1024, E=4, R=65, W=48.
-The kernel (``csrc/edge_gather.cu``) gives each (q, e) row its own block,
-so Q*E blocks keep many rows in flight; a warp reads consecutive words;
-lanes that share a neighbour are summed with warp intrinsics and added
-into a shared int accumulator, so the result is exact in any order.  The
-TPU's 128-lane row padding and 0/1 segment-sum matrix have no counterpart.
+An invalid edge (nb < 0) reads row 0, as the cache held it; callers mask
+those slots.
+
+Bound on an H100: bytes.  The least device-memory traffic is each distinct
+frontier row's R adjacency entries, each distinct neighbour's code row,
+the row ids and query codes read once and the output written once (about
+20 MB at Q=1024, E=4, R=65, W=48 over 100k rows, so about 6 us at the H100
+SXM's data-sheet 3.35 TB/s); the Q*E*R*W*4 bytes of code rows the lanes
+read (51 MB there) come from L2 after a row's first read.
+The kernel (``csrc/edge_gather.cu``) is flat over the Q*E*R neighbour
+slots: G lanes a slot, each lane issuing all of its 16-byte code and query
+loads before using them, a ``__shfl_xor_sync`` sum over the G lanes, and
+contiguous output.  The TPU's 128-lane row padding and 0/1 segment-sum
+matrix have no counterpart.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain PyTorch version below.  ``launches`` counts kernel launches.
@@ -36,27 +43,25 @@ launches = 0
 
 
 def hamming_edge_gather_plain(
-    edge_codes: torch.Tensor,  # i32[cap, R*W]
+    codes: torch.Tensor,  # i32[cap, W]
+    adjacency: torch.Tensor,  # i32[cap, R]
     sel: torch.Tensor,  # i32[Q, E]
     query_codes: torch.Tensor,  # i32[Q, W]
-    *,
-    r_max: int,
 ) -> torch.Tensor:
-    """The plain version: gather + XOR + SWAR popcount + segment sum,
-    f32[Q, E*R].  Row ids are clamped into [0, cap) as the kernel does."""
+    """The plain version: two gathers + XOR + SWAR popcount + sum over the
+    words, f32[Q, E*R].  Row ids and neighbour ids are clamped into
+    [0, cap) as the kernel does."""
     q, e = sel.shape
-    w = query_codes.shape[1]
-    idx = sel.clamp(0, edge_codes.shape[0] - 1).long()
-    ec = edge_codes[idx]  # [Q, E, R*W]
-    x = torch.bitwise_xor(ec, query_codes.repeat(1, r_max)[:, None, :])
-    pops = popcount32(x).reshape(q, e, r_max, w)
-    return torch.sum(pops, dim=-1, dtype=torch.int32).reshape(q, e * r_max).to(
-        torch.float32
-    )
+    cap, r = adjacency.shape
+    nodes = sel.clamp(0, cap - 1).long()
+    nbrs = adjacency[nodes].clamp(0, cap - 1).long()  # [Q, E, R]
+    x = torch.bitwise_xor(codes[nbrs], query_codes[:, None, None, :])
+    pops = torch.sum(popcount32(x), dim=-1, dtype=torch.int32)
+    return pops.reshape(q, e * r).to(torch.float32)
 
 
-def _check(edge_codes, sel, query_codes, r_max):
-    for name, t in (("edge_codes", edge_codes), ("sel", sel),
+def _check(codes, adjacency, sel, query_codes):
+    for name, t in (("codes", codes), ("adjacency", adjacency), ("sel", sel),
                     ("query_codes", query_codes)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -64,49 +69,48 @@ def _check(edge_codes, sel, query_codes, r_max):
             raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != edge_codes.device:
-            raise ValueError(f"{name} is on {t.device}, edge_codes on "
-                             f"{edge_codes.device}")
-    q, w = query_codes.shape
+        if t.device != codes.device:
+            raise ValueError(f"{name} is on {t.device}, codes on {codes.device}")
+    cap, w = codes.shape
+    q = query_codes.shape[0]
+    if cap == 0 or adjacency.shape[0] != cap:
+        raise ValueError(f"codes has {cap} rows and adjacency "
+                         f"{adjacency.shape[0]}: both need the same cap > 0")
+    if w == 0 or adjacency.shape[1] == 0 or query_codes.shape[1] != w:
+        raise ValueError(f"query_codes rows hold {query_codes.shape[1]} words, "
+                         f"codes rows {w}, adjacency rows {adjacency.shape[1]}: "
+                         "all need > 0 and the words must agree")
     if sel.shape[0] != q:
         raise ValueError(f"sel has {sel.shape[0]} rows, query_codes {q}")
-    if w <= 0 or r_max <= 0 or edge_codes.shape[1] != r_max * w:
-        raise ValueError(
-            f"edge_codes rows hold {edge_codes.shape[1]} words, expected "
-            f"r_max*W = {r_max}*{w}"
-        )
-    if edge_codes.shape[0] == 0:
-        raise ValueError("edge_codes has no rows")
+    if sel.numel() * adjacency.shape[1] * 32 >= 2**31 or cap >= 2**31:
+        raise ValueError("too many neighbour slots for one launch")
 
 
 def hamming_edge_gather(
-    edge_codes: torch.Tensor,  # i32[cap, R*W] flat edge-code cache
-    sel: torch.Tensor,  # i32[Q, E] frontier node ids (callers clamp >= 0)
+    codes: torch.Tensor,  # i32[cap, W]
+    adjacency: torch.Tensor,  # i32[cap, R]
+    sel: torch.Tensor,  # i32[Q, E] frontier node ids (clamped)
     query_codes: torch.Tensor,  # i32[Q, W]
-    *,
-    r_max: int,
 ) -> torch.Tensor:
     """f32[Q, E*R] Hamming distances from each query to the neighbours of
     its E frontier nodes."""
     global launches
-    _check(edge_codes, sel, query_codes, r_max)
-    device = edge_codes.device
+    _check(codes, adjacency, sel, query_codes)
+    device = codes.device
     if device.type == "cpu":
-        return hamming_edge_gather_plain(
-            edge_codes, sel, query_codes, r_max=r_max
-        )
+        return hamming_edge_gather_plain(codes, adjacency, sel, query_codes)
     if device.type != "cuda":
         raise ValueError(f"no edge-gather kernel for device {device}")
     q, e = sel.shape
-    w = query_codes.shape[1]
-    out = torch.empty((q, e * r_max), dtype=torch.float32, device=device)
+    cap, r = adjacency.shape
+    out = torch.empty((q, e * r), dtype=torch.float32, device=device)
     if q * e == 0:
         return out
     fn = _kernel()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(
-        edge_codes.data_ptr(), sel.data_ptr(), query_codes.data_ptr(),
-        out.data_ptr(), q, e, r_max, w, edge_codes.shape[0],
+        codes.data_ptr(), adjacency.data_ptr(), sel.data_ptr(),
+        query_codes.data_ptr(), out.data_ptr(), q, e, r, codes.shape[1], cap,
         device.index if device.index is not None else torch.cuda.current_device(),
         stream,
     )
@@ -121,15 +125,23 @@ def _kernel():
     fn = lib.pgvs_edge_gather_hamming
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def bound_bytes(q: int, e: int, r_max: int, w: int, rows: int) -> int:
-    """Bytes the function must move: each of the ``rows`` distinct gathered
-    rows, the row ids and the query codes read once, the output written
-    once."""
-    return (rows * r_max * w + q * e + q * w + q * e * r_max) * 4
+def bound_bytes(q: int, e: int, r_max: int, w: int, sel_rows: int,
+                nbr_rows: int) -> int:
+    """Bytes the function must move from device memory: the R adjacency
+    entries of each of the ``sel_rows`` distinct frontier rows, the code
+    row of each of the ``nbr_rows`` distinct neighbours, the row ids and
+    the query codes read once, the output written once."""
+    return (sel_rows * r_max + nbr_rows * w + q * e + q * w + q * e * r_max) * 4
+
+
+def l2_bytes(q: int, e: int, r_max: int, w: int) -> int:
+    """Bytes of code rows the lanes read, every read counted (a row read
+    again within a call comes from L2)."""
+    return q * e * r_max * w * 4

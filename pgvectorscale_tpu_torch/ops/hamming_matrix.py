@@ -5,11 +5,13 @@ Replaces the TPU kernel ``hamming_matrix_pallas`` / ``_hamming_tile_kernel``
 
     out[q, n] = sum_w popcount(query_codes[q, w] ^ codes[n, w])    (int32)
 
-Bound on an H100: operations, and among them ``popc``.  An SM executes 16
-``popc`` per clock against 64 32-bit XORs or adds, so the least time is
-Q*N*W / (132 * 16 * clock): about 0.39 ms at Q=4096, N=8192, W=48 (a
-100k-row build's first wave) and 1.98 GHz; the Q*N*4 output bytes take
-0.04 ms at 3.35 TB/s.  The kernel (``csrc/hamming_matrix.cu``) gives each
+Bound on an H100: operations, on the int8 tensor cores, as the popcount
+dot pop(a) + pop(b) - 2 * dot(a, b) over 0/1 bits: Q*N*W*32*2 int8
+operations at 1,979 TOP/s, about 0.052 ms at Q=4096, N=8192, W=48 (a
+100k-row build's first wave).  This kernel runs on the CUDA cores, where an
+SM executes 16 ``popc`` per clock against 64 32-bit XORs or adds, so its
+own floor is Q*N*W / (132 * 16 * clock), about 0.39 ms at 1.98 GHz; the
+Q*N*4 output bytes take 0.04 ms at 3.35 TB/s.  The kernel (``csrc/hamming_matrix.cu``) gives each
 64 x 64 output tile a block, stages the tile's query and code rows in
 shared memory 32 words at a time (any W up to 500 fits), keeps 16 sums per
 thread in registers and masks the ragged edges itself; the TPU's 128 x 128

@@ -102,7 +102,6 @@ def main() -> None:
     _summary(prof, walls[WAVE - 1], plain_walls[WAVE - 1], f"build wave {WAVE}")
 
     qdev = torch.as_tensor(queries).cuda()
-    index._edge_code_cache()
     for rescore in (50, 300):
         params = QueryParams(search_list_size=100, rescore=rescore)
         plain = []

@@ -83,8 +83,7 @@ def test_wave_step_and_finalize_match_jax(integer_l2, brute):
     kw["distance_type"] = DistanceType.L2
     got = build._wave_step(
         parrays, torch.from_numpy(wave), n,
-        None if brute else parrays.adjacency.clone(),
-        None if brute else build.build_wave_cache(parrays), **kw,
+        None if brute else parrays.adjacency.clone(), **kw,
     )
     np.testing.assert_array_equal(got.adjacency.numpy(), np.asarray(want.adjacency))
     assert int((got.adjacency[:n] != -1).sum(1).max()) > cfg.num_neighbors

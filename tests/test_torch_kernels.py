@@ -74,21 +74,30 @@ def test_build_raises_on_an_nvcc_error_and_leaves_no_library(tmp_path, monkeypat
 
 
 def test_edge_gather_wrapper_rejects_bad_inputs():
-    edge = torch.zeros((10, 6), dtype=torch.int32)
+    codes = torch.zeros((10, 3), dtype=torch.int32)
+    adj = torch.zeros((10, 2), dtype=torch.int32)
     sel = torch.zeros((4, 2), dtype=torch.int32)
     qc = torch.zeros((4, 3), dtype=torch.int32)
-    edge_gather.hamming_edge_gather(edge, sel, qc, r_max=2)  # accepted
+    eg = edge_gather.hamming_edge_gather
+    before = edge_gather.launches
+    assert eg(codes, adj, sel, qc).shape == (4, 4)  # accepted
+    assert edge_gather.launches == before  # the CPU takes the plain version
     with pytest.raises(TypeError):
-        edge_gather.hamming_edge_gather(edge.long(), sel, qc, r_max=2)
+        eg(codes.long(), adj, sel, qc)
+    with pytest.raises(TypeError):
+        eg(codes, adj.long(), sel, qc)
+    with pytest.raises(ValueError):  # words differ
+        eg(codes, adj, sel, qc[:, :2].contiguous())
+    with pytest.raises(ValueError):  # cap differs
+        eg(codes, adj[:9], sel, qc)
     with pytest.raises(ValueError):
-        edge_gather.hamming_edge_gather(edge, sel, qc, r_max=3)
+        eg(codes, adj, sel[:3], qc)
     with pytest.raises(ValueError):
-        edge_gather.hamming_edge_gather(edge, sel[:3], qc, r_max=2)
+        eg(codes, adj, sel.t(), qc.t())
     with pytest.raises(ValueError):
-        edge_gather.hamming_edge_gather(edge, sel.t(), qc.t(), r_max=2)
+        eg(codes[:0], adj[:0], sel, qc)
     with pytest.raises(ValueError):
-        edge_gather.hamming_edge_gather(edge.to("meta"), sel.to("meta"),
-                                        qc.to("meta"), r_max=2)
+        eg(codes.to("meta"), adj.to("meta"), sel.to("meta"), qc.to("meta"))
 
 
 def test_hamming_matrix_wrapper_rejects_bad_inputs():
@@ -131,23 +140,32 @@ def test_hamming_matrix_kernel_matches_plain_on_card(cuda_device, q, n, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "q,e,r,w", [(1024, 4, 65, 48), (256, 1, 65, 8), (128, 2, 65, 16),
-                (128, 2, 65, 32), (128, 2, 65, 24)]
+                (128, 2, 65, 32), (128, 2, 65, 24),
+                # 4-byte loads: odd W, W % 4 != 0, and W past 4 chunks a
+                # lane at 32 lanes a neighbour.
+                (64, 3, 65, 1), (64, 2, 65, 25), (64, 2, 65, 6), (32, 2, 7, 1001),
+                # 16-byte loads past 4 chunks a lane at 32 lanes.
+                (32, 2, 7, 1000)]
 )
 def test_edge_gather_kernel_matches_plain_on_card(cuda_device, q, e, r, w):
-    """On the card the kernel launches and equals its plain version."""
+    """On the card the kernel launches and equals its plain version, with
+    about a quarter of the edges invalid and out-of-range row ids."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
     cap = 4096
-    edge = torch.randint(-2**31, 2**31 - 1, (cap, r * w), dtype=torch.int32,
-                         device=cuda_device, generator=g)
+    codes = torch.randint(-2**31, 2**31 - 1, (cap, w), dtype=torch.int32,
+                          device=cuda_device, generator=g)
+    adj = torch.randint(0, cap, (cap, r), dtype=torch.int32, device=cuda_device,
+                        generator=g)
+    adj[torch.rand((cap, r), device=cuda_device, generator=g) < 0.25] = -1
     sel = torch.randint(0, cap, (q, e), dtype=torch.int32, device=cuda_device, generator=g)
     qc = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
                        device=cuda_device, generator=g)
     sel[0, 0], sel[-1, -1] = -5, cap + 7  # out-of-range ids are clamped
     before = edge_gather.launches
-    got = edge_gather.hamming_edge_gather(edge, sel, qc, r_max=r)
+    got = edge_gather.hamming_edge_gather(codes, adj, sel, qc)
     torch.cuda.synchronize()
     assert edge_gather.launches == before + 1
-    assert torch.equal(got, edge_gather.hamming_edge_gather_plain(edge, sel, qc, r_max=r))
+    assert torch.equal(got, edge_gather.hamming_edge_gather_plain(codes, adj, sel, qc))
 
 
 @pytest.mark.cuda
@@ -158,7 +176,7 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
     import numpy as np
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
-    from pgvectorscale_tpu_torch.graph.build import build_wave_cache, reachable_on_device
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
     from pgvectorscale_tpu_torch.graph.search import beam_search, get_start_ids
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
 
@@ -177,8 +195,7 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
             vectors=index.arrays.vectors.to(dev), deleted=index.arrays.deleted.to(dev),
         )
         res = beam_search(arrays, codes.to(dev), get_start_ids(arrays, 64),
-                          search_list_size=64, max_iters=112, expand_factor=4,
-                          edge_codes=build_wave_cache(arrays))
+                          search_list_size=64, max_iters=112, expand_factor=4)
         results.append([t.cpu() for t in (res.beam_ids, res.beam_dists, res.hist_ids)])
     for a, b in zip(*results):
         assert torch.equal(a, b)

@@ -244,3 +244,46 @@ def test_load_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DiskannIndex.load(os.path.join(FIXTURES, "checkpoint_v3.npz"))
+
+
+@pytest.fixture(scope="module")
+def exact_built(tmp_path_factory):
+    """A JAX-built 64 x 16 SBQ index with build_distance "exact" (full
+    precision traversal, which the port does not build), its queries and
+    its checkpoint."""
+    base, queries = synthetic_corpus("glove", 64, 12, seed=31)
+    base, queries = base[:, :16].copy(), queries[:, :16].copy()
+    jidx = JaxIndex.build(base, JaxConfig(num_dimensions=16, build_distance="exact"))
+    path = str(tmp_path_factory.mktemp("exact") / "exact.npz")
+    jidx.save(path)
+    return jidx, queries, path
+
+
+@pytest.mark.parametrize("via", ["from_jax_state", "load"])
+def test_exact_built_index_searches_like_jax(exact_built, via):
+    """The port carries (from_jax_state) or loads (the JAX package's
+    save) an SBQ index built with build_distance "exact" and searches it
+    as JAX does: at rescore 0 the distances are Hamming integers and equal
+    exactly; at rescore 20 the ids are equal and the distances within 1e-5
+    (float32 dot products summed in two orders).  ``add`` then raises
+    NotImplementedError and leaves the index as it was."""
+    jidx, queries, path = exact_built
+    if via == "load":
+        pidx = DiskannIndex.load(path, device="cpu")
+    else:
+        pidx = from_jax_state(jstore.to_host(jidx.arrays), jidx.sbq_stats,
+                              jidx.config, device="cpu")
+    assert pidx.config.build_distance == "exact" and pidx.count == 64
+    for rescore in (0, 20):
+        j_ids, j_d = jidx.search(queries, 5, JaxParams(search_list_size=32, rescore=rescore))
+        ids, d = pidx.search(queries, 5, QueryParams(search_list_size=32, rescore=rescore),
+                             device="cpu")
+        np.testing.assert_array_equal(ids.numpy(), j_ids)
+        if rescore == 0:
+            np.testing.assert_array_equal(d.numpy(), j_d)
+        else:
+            np.testing.assert_allclose(d.numpy(), j_d, atol=1e-5, rtol=0)
+    arrays = pidx.arrays
+    with pytest.raises(NotImplementedError):
+        pidx.add(queries[:4])
+    assert pidx.arrays is arrays and pidx.count == 64

@@ -129,17 +129,24 @@ def test_hamming_matrix_and_gather_match_jax(rng):
 
 @pytest.mark.parametrize("q,e,r,w", [(8, 1, 3, 1), (100, 2, 65, 8), (130, 4, 17, 8)])
 def test_edge_gather_plain_matches_pallas(rng, q, e, r, w):
-    """The plain version equals the TPU kernel (interpret mode) exactly."""
+    """The plain version, reading the codes through the adjacency, equals
+    the TPU kernel (interpret mode) over the edge-code cache
+    ``codes[adjacency]`` built in numpy (invalid edges gather row 0), with
+    about a quarter of the edges invalid (tolerance: none)."""
     cap = 500
-    edge = rng.integers(0, 2**32, (cap, r * w), dtype=np.uint64).astype(np.uint32)
+    codes = rng.integers(0, 2**32, (cap, w), dtype=np.uint64).astype(np.uint32)
+    adjacency = rng.integers(0, cap, (cap, r)).astype(np.int32)
+    adjacency[rng.random((cap, r)) < 0.25] = -1
     sel = rng.integers(0, cap, (q, e)).astype(np.int32)
     qc = rng.integers(0, 2**32, (q, w), dtype=np.uint64).astype(np.uint32)
+    edge = codes[np.maximum(adjacency, 0)].reshape(cap, r * w)
     want = np.asarray(hamming_edge_gather_pallas(
         jnp.asarray(edge), jnp.asarray(sel), jnp.asarray(qc), r_max=r, interpret=True
     ))
     before = edge_gather.launches
     got = edge_gather.hamming_edge_gather(
-        _u32_to_i32(edge), torch.from_numpy(sel), _u32_to_i32(qc), r_max=r
+        _u32_to_i32(codes), torch.from_numpy(adjacency), torch.from_numpy(sel),
+        _u32_to_i32(qc),
     )
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)

@@ -25,7 +25,6 @@ from pgvectorscale_tpu.ops import sbq as jsbq
 from pgvectorscale_tpu_torch import QueryParams, from_jax_state, store
 from pgvectorscale_tpu_torch.config import DistanceType
 from pgvectorscale_tpu_torch.graph import prune, search
-from pgvectorscale_tpu_torch.graph.build import build_wave_cache
 from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
 
 
@@ -82,8 +81,9 @@ def test_merge_sorted_into_beam_matches_jax(rng):
 
 @pytest.mark.parametrize("e", [1, 2, 4])
 def test_beam_search_matches_jax(carried, e):
-    """Beam, visit history and counters equal JAX's for E = 1/2/4 over
-    the edge-code cache (tolerance: none)."""
+    """Beam, visit history and counters equal JAX's for E = 1/2/4 (JAX over
+    its edge-code cache, the port reading the codes through the adjacency;
+    tolerance: none)."""
     jidx, pidx, queries = carried
     qv = np.asarray(jnp.asarray(queries) / jnp.linalg.norm(queries, axis=1, keepdims=True))
     jcodes = jsbq.encode(jnp.asarray(qv), jidx.sbq_stats, 2)
@@ -97,8 +97,7 @@ def test_beam_search_matches_jax(carried, e):
     )
     got = search.beam_search(
         pidx.arrays, torch.from_numpy(np.asarray(jcodes).view(np.int32)),
-        torch.from_numpy(start),
-        edge_codes=build_wave_cache(pidx.arrays), **kw,
+        torch.from_numpy(start), **kw,
     )
     for name in ("beam_ids", "beam_dists", "beam_visited", "hist_ids", "hist_dists",
                  "n_visited", "n_dist_comps"):

@@ -153,7 +153,6 @@ def test_storage_wave_step_and_finalize_match_jax(storage_l2, brute):
     got = build._wave_step(
         parrays, torch.from_numpy(wave), n,
         None if brute else parrays.adjacency.clone(),
-        None if brute else build.build_wave_cache(parrays),
         distance_type=DistanceType.L2, **kw,
     )
     np.testing.assert_array_equal(got.adjacency.numpy(), np.asarray(want.adjacency))
