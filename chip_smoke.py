@@ -18,8 +18,11 @@ Phases, each reported on a timestamped, flushed line:
    the slots invalid, as the built graph has them); times of both beside
    the least time the card could take (the larger of the bytes over the
    memory rate and the operations on the quicker of the CUDA cores' popc
-   pipe and the int8 tensor cores) and, for the Hamming matrix, the
-   popcount-dot matrix product as the library yardstick.
+   pipe and the tensor cores' 1-bit path) and, for the Hamming matrix, two
+   popcount-dot yardsticks (an fp16 matmul, and cuBLASLt's int8 product
+   through ``torch._int_mm`` on bits expanded beforehand; the faster is
+   ``library_ms``), the int8 product alone beside them.  The Hamming
+   matrix is also checked on constant codes and misaligned tables.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -81,18 +84,23 @@ DEADLINES = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
-# 1.98 GHz.
+# 1.98 GHz, four times longer on each retry when the host was slower.
 QUEUE_SLEEP_CYCLES = 39_600_000
+QUEUE_SLEEP_TRIES = 4
 # Per-SM instruction rates per clock, compute capability 9.0 (CUDA C Programming
 # Guide, arithmetic instruction throughput): 32-bit integer add and
 # logical operations, and population count.  They run in separate pipes,
 # so on the CUDA cores the slower of the two bounds.
 INT32_OPS_PER_CLK_SM = 64
 POPC_PER_CLK_SM = 16
-# H100 SXM dense int8 tensor-core peak (data sheet): a Hamming distance is
-# also pop(a) + pop(b) - 2 * dot(a, b) over 0/1 bits, a product the tensor
-# cores compute at this rate.
-INT8_TENSOR_OPS_PER_S = 1.979e15
+# Bit pairs a second of the tensor cores' 1-bit path (mma.sync m16n8k256
+# .b1 .and.popc), the quickest way the card has to the dot of
+# pop(a) + pop(b) - 2 * dot(a, b), the Hamming distance over 0/1 bits.
+# The data sheet gives no 1-bit rate: this is the best that
+# microbench/mma_rates.cu measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (the int8 path there: 0.66e15 bit pairs a second with mma.sync, and the
+# data sheet's dense int8 wgmma peak of 1,979 TOP/s is 0.99e15).
+B1_TENSOR_BIT_PAIRS_PER_S = 5.113304e15
 N, NQ, DIM, SEED = 100_000, 1024, 768, 0
 # Share of INVALID_ID adjacency slots in phase 2's random graphs: the
 # built 100k graph's mean degree is 49.99 of 65 slots.
@@ -130,24 +138,29 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn(i)`` over ``iters`` calls, CUDA events.
     The calls are queued behind a device sleep of QUEUE_SLEEP_CYCLES, so a
     kernel shorter than the host's launch overhead runs back to back
-    instead of waiting for the host; fails if the sleep ended before the
-    host had queued them all."""
+    instead of waiting for the host.  If the sleep ended before the host
+    had queued them all, the run is discarded and repeated behind a sleep
+    four times longer; fails after QUEUE_SLEEP_TRIES runs."""
     import torch
 
     for i in range(warmup):
         fn(i)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    if start.query():
-        fail(f"the device sleep ended before the host had queued {iters} calls")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = QUEUE_SLEEP_CYCLES
+    for _ in range(QUEUE_SLEEP_TRIES):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        if not start.query():
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail(f"the device sleep ({cycles // 4} cycles) ended before the host had "
+         f"queued {iters} calls, {QUEUE_SLEEP_TRIES} times")
 
 
 def nvidia_smi(query: str) -> str:
@@ -180,16 +193,16 @@ def hamming_ops_ms(card: dict, pairs: int, words: int) -> dict:
     """Least time for the operations of ``pairs`` Hamming distances of
     ``words`` 32-bit words each, on the quicker of the card's two ways:
     the CUDA cores (one XOR, ``popc`` and add per word pair, at the
-    per-SM issue rates) or the tensor cores (a 0/1 bit product, two int8
-    operations per bit pair, at the dense int8 peak)."""
+    per-SM issue rates) or the tensor cores' 1-bit path (32 bit pairs per
+    word pair, at B1_TENSOR_BIT_PAIRS_PER_S)."""
     per_s = card["sms"] * card["sm_hz"]
     n = pairs * words
     cores = max(n / (per_s * POPC_PER_CLK_SM),
                 2 * n / (per_s * INT32_OPS_PER_CLK_SM)) * 1e3
-    tensor = 2 * n * 32 / INT8_TENSOR_OPS_PER_S * 1e3
+    tensor = n * 32 / B1_TENSOR_BIT_PAIRS_PER_S * 1e3
     return dict(ms=min(cores, tensor), cores_ms=cores, tensor_ms=tensor,
                 way="popc on the CUDA cores" if cores <= tensor
-                else "int8 tensor cores")
+                else "1-bit tensor cores")
 
 
 def bound(nbytes: int, ops: dict) -> tuple[float, str, str]:
@@ -197,7 +210,7 @@ def bound(nbytes: int, ops: dict) -> tuple[float, str, str]:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     by = "bytes" if bytes_ms >= ops["ms"] else "operations"
     how = (f"bytes {bytes_ms:.4f} ms ({nbytes} B); operations {ops['ms']:.4f} ms "
-           f"by {ops['way']} (CUDA cores {ops['cores_ms']:.4f} ms, int8 tensor "
+           f"by {ops['way']} (CUDA cores {ops['cores_ms']:.4f} ms, 1-bit tensor "
            f"cores {ops['tensor_ms']:.4f} ms)")
     return max(bytes_ms, ops["ms"]), by, how
 
@@ -316,7 +329,7 @@ def checksum(t) -> int:
 
 
 def popcount_dot(qc, cc, bits: int):
-    """The Hamming matrix as a library matrix product (the yardstick, not
+    """The Hamming matrix as a library matrix product (a yardstick, not
     used by the port): unpack to 0/1 fp16, one fp16 matmul with fp32
     accumulation (exact while bits <= 2,048), pop_a + pop_b - 2 * dot."""
     import torch
@@ -331,53 +344,72 @@ def popcount_dot(qc, cc, bits: int):
     return pa[:, None] + pb[None, :] - 2 * dot
 
 
+def int8_popcount_dot(a, pa, b, pb):
+    """The same formula on bits expanded beforehand to int8 0/1
+    (``expand_code_bits_plain``): cuBLASLt's int8 product on the tensor
+    cores through ``torch._int_mm`` (a yardstick, not used by the port)."""
+    import torch
+
+    return pa[:, None] + pb[None, :] - 2 * torch._int_mm(a, b.T)
+
+
 def check_hamming_matrix(card: dict) -> dict:
     import torch
 
     from pgvectorscale_tpu_torch.ops import hamming_matrix as hm
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    # (q, n, w): the 100k storage build's seed wave, the first add into a
-    # 2,048-row index (grown to 6,144 rows), the TPU kernel tests' shapes,
-    # and a ragged wide one (16,000 dims at 1 bit).
-    shapes = [(4096, 8192, 48), (4096, 6144, 48), (8, 16, 1), (100, 130, 8),
-              (128, 256, 48), (333, 1000, 500)]
+    # The kernel's check cases (``CHECK_CASES``, shared with the card
+    # tests); the first, the 100k storage build's seed wave, is timed.
+    shapes = hm.CHECK_CASES
     max_err = 0
     timing = None
-    for q, n, w in shapes:
-        qc = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
-                           device="cuda", generator=g)
-        cc = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
-                           device="cuda", generator=g)
+    for q, n, w, fill in shapes:
+        qc, cc, const = hm.check_codes(q, n, w, fill, "cuda", g)
         got = hm.hamming_matrix(qc, cc)
         want = hm.hamming_matrix_plain(qc, cc)
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
+        if const is not None:
+            ok = ok and bool((got == const).all())
         err = int((got - want).abs().max())
         max_err = max(max_err, err)
-        say(f"  hamming_matrix Q={q} N={n} W={w}: {'equal' if ok else 'DIFFERENT'} "
-            f"(max abs err {err})")
+        say(f"  hamming_matrix Q={q} N={n} W={w}{'' if fill is None else ' ' + fill}: "
+            f"{'equal' if ok else 'DIFFERENT'} (max abs err {err})")
         if not ok:
-            fail(f"hamming_matrix differs from its plain version at {(q, n, w)}")
+            fail(f"hamming_matrix differs from its plain version at {(q, n, w, fill)}")
         if timing is None:
             prev = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
             torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
             try:
-                lib_ok = torch.equal(popcount_dot(qc, cc, 32 * w), got)
+                fp16_ok = torch.equal(popcount_dot(qc, cc, 32 * w), got)
+                (a, pa), (b, pb) = hm.expand_code_bits_plain(qc), hm.expand_code_bits_plain(cc)
+                int8_ok = torch.equal(int8_popcount_dot(a, pa, b, pb), got)
                 ms = cuda_time_ms(lambda i: hm.hamming_matrix(qc, cc), 50)
                 plain_ms = cuda_time_ms(lambda i: hm.hamming_matrix_plain(qc, cc), 3, 1)
-                library_ms = cuda_time_ms(lambda i: popcount_dot(qc, cc, 32 * w), 50)
+                fp16_ms = cuda_time_ms(lambda i: popcount_dot(qc, cc, 32 * w), 50)
+                int8_ms = cuda_time_ms(lambda i: int8_popcount_dot(a, pa, b, pb), 50)
+                gemm_ms = cuda_time_ms(lambda i: torch._int_mm(a, b.T), 50)
             finally:
                 torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = prev
-            if not lib_ok:
-                fail("the popcount-dot yardstick differs from the kernel")
+            if not (fp16_ok and int8_ok):
+                fail(f"a popcount-dot yardstick differs from the kernel (fp16 equal "
+                     f"{fp16_ok}, int8 equal {int8_ok})")
+            del a, b
             nbytes = hm.bound_bytes(q, n, w)
             bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, q * n, w))
             timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms, bound_how=how, shape=dict(q=q, n=n, w=w))
-            say(f"  hamming_matrix timing at Q={q} N={n} W={w}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, popcount-dot matmul {library_ms:.4f} ms "
-                f"(equal to the kernel), bound {bound_ms:.4f} ms ({bound_by}: {how})")
+                          library_ms=min(fp16_ms, int8_ms), bound_how=how,
+                          shape=dict(q=q, n=n, w=w),
+                          yardsticks_ms=dict(fp16_popcount_dot=fp16_ms,
+                                             int8_popcount_dot=int8_ms,
+                                             int8_int_mm_alone=gemm_ms))
+            say(f"  hamming_matrix timing at Q={q} N={n} W={w}: kernel {ms:.4f} ms (one "
+                f"launch: the dot on the 1-bit tensor-core path, no expansion kernel), "
+                f"plain {plain_ms:.4f} ms; popcount-dot yardsticks, both equal to the "
+                f"kernel: fp16 matmul {fp16_ms:.4f} ms, int8 torch._int_mm on bits "
+                f"expanded beforehand {int8_ms:.4f} ms (the int8 product alone "
+                f"{gemm_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by}: {how})")
         del qc, cc, got, want
     say(f"phase 2 kernel vs plain: hamming_matrix equal at all {len(shapes)} shapes")
     check_deadline("kernel vs plain")
@@ -749,6 +781,7 @@ def main() -> int:
         "kernel_timing_shapes": {k: timing[k]["shape"] for k in KERNELS},
         "kernel_bounds": {k: timing[k]["bound_how"] for k in KERNELS},
         "edge_gather_by_q": timing["edge_gather"]["by_q"],
+        "hamming_matrix_yardsticks_ms": timing["hamming_matrix"]["yardsticks_ms"],
         "peak_memory_bytes": peaks,
         "build_s": build_times, "search": {str(k): v for k, v in search.items()},
         "storage_build_s": s_build_times,

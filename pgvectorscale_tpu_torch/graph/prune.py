@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import DistanceType
+from ..ops.hamming import code_bits
 from ..store import INVALID_ID
 
 _F32_EPS = float(np.finfo(np.float32).eps)
@@ -111,24 +112,23 @@ def robust_prune(
     )
 
 
-def pairwise_hamming_mxu(code_bits: torch.Tensor) -> torch.Tensor:
+def pairwise_hamming_mxu(bits: torch.Tensor) -> torch.Tensor:
     """Pairwise Hamming distances among candidates from their unpacked 0/1
     bits f32[B, C, Db]: hamming(a, b) = pop(a) + pop(b) - 2 * dot(a, b),
     one batched matrix product.  Sums of 0/1 in float32 are exact (below
     2**24), so the result is exact.  Returns f32[B, C, C]."""
-    code_bits = code_bits.to(torch.float32)
-    dots = torch.bmm(code_bits, code_bits.transpose(1, 2))
-    pops = torch.sum(code_bits, dim=-1)
-    return pops[:, :, None] + pops[:, None, :] - 2.0 * dots
+    bits = bits.to(torch.float32)
+    dots = torch.bmm(bits, bits.transpose(1, 2))
+    pops = torch.sum(bits, dim=-1)
+    # In place, so one [B, C, C] buffer sits beside the bits (the storage
+    # build's peak); every term is an integer, exact in any order.
+    return dots.mul_(-2.0).add_(pops[:, :, None]).add_(pops[:, None, :])
 
 
 def unpack_code_bits(codes: torch.Tensor, num_bits: int) -> torch.Tensor:
     """int32[..., W] packed codes -> f32[..., num_bits] 0/1 bits, LSB
-    first (an arithmetic shift by 31 leaves -1, whose low bit is bit 31)."""
-    shifts = torch.arange(32, dtype=torch.int32, device=codes.device)
-    bits = (codes[..., None] >> shifts).bitwise_and_(1)
-    flat = bits.reshape(*codes.shape[:-1], codes.shape[-1] * 32)
-    return flat[..., :num_bits].to(torch.float32)
+    first; the transient holds one byte a bit (``ops.hamming.code_bits``)."""
+    return code_bits(codes)[..., :num_bits].to(torch.float32)
 
 
 def pairwise_distance_matrix_full(

@@ -21,6 +21,16 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+def code_bits(codes: torch.Tensor) -> torch.Tensor:
+    """int32[..., W] packed codes -> uint8[..., 32 * W] 0/1 bits, LSB first.
+    The words are little-endian, so their bytes in memory order, each
+    unpacked LSB first, keep the bit order; the result holds one byte a
+    bit.  The last dimension must be contiguous."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=codes.device)
+    bits = (codes.view(torch.uint8)[..., None] >> shifts).bitwise_and_(1)
+    return bits.reshape(*codes.shape[:-1], codes.shape[-1] * 32)
+
+
 def hamming_distance_matrix(
     query_codes: torch.Tensor, codes: torch.Tensor
 ) -> torch.Tensor:

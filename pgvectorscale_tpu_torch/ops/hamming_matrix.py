@@ -5,20 +5,28 @@ Replaces the TPU kernel ``hamming_matrix_pallas`` / ``_hamming_tile_kernel``
 
     out[q, n] = sum_w popcount(query_codes[q, w] ^ codes[n, w])    (int32)
 
-Bound on an H100: operations, on the int8 tensor cores, as the popcount
-dot pop(a) + pop(b) - 2 * dot(a, b) over 0/1 bits: Q*N*W*32*2 int8
-operations at 1,979 TOP/s, about 0.052 ms at Q=4096, N=8192, W=48 (a
-100k-row build's first wave).  This kernel runs on the CUDA cores, where an
-SM executes 16 ``popc`` per clock against 64 32-bit XORs or adds, so its
-own floor is Q*N*W / (132 * 16 * clock), about 0.39 ms at 1.98 GHz; the
-Q*N*4 output bytes take 0.04 ms at 3.35 TB/s.  The kernel (``csrc/hamming_matrix.cu``) gives each
-64 x 64 output tile a block, stages the tile's query and code rows in
-shared memory 32 words at a time (any W up to 500 fits), keeps 16 sums per
-thread in registers and masks the ragged edges itself; the TPU's 128 x 128
-tile padding has no counterpart.
+Over 0/1 bits the same matrix is the popcount-dot pop(a) + pop(b) -
+2 * dot(a, b), K = 32 * W bits.  Bound on an H100: bytes, the Q*N*4 output
+bytes, 0.041 ms at 3.35 TB/s at Q=4096, N=8192, W=48 (a 100k-row build's
+first wave); the operations take 0.010 ms on the tensor cores' 1-bit path
+at the rate ``microbench/mma_rates.cu`` measures, 5.11e15 bit pairs a
+second (0.052 ms as an int8 product at the data sheet's 1,979 TOP/s).
+The kernel (``csrc/hamming_matrix.cu``, one launch)
+computes the dot on the tensor cores' 1-bit path, ``mma.sync m16n8k256
+.b1 .and.popc`` on the packed words (8 times the bit pairs a second of
+the int8 path, so its operations take a quarter of the output's time), and
+is built around its stores: 64 x 128 output tiles, three blocks an SM,
+the code rows staged in shared memory 64 words at a time with their bit
+counts, and the tile written back in whole 16-byte chunks with streaming
+stores.  It masks the ragged edges itself; the TPU's 128 x 128 tile
+padding has no counterpart.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain PyTorch version, ``ops.hamming.hamming_distance_matrix``.
+``expand_code_bits_plain`` writes the kernel's arithmetic out bit by bit
+(0/1 bytes and row popcounts, for pop(a) + pop(b) - 2 * dot) for the tests
+and the library yardstick; ``CHECK_CASES`` and ``check_codes`` are the
+cases that the card tests and ``chip_smoke.py`` hold the kernel to.
 ``launches`` counts kernel launches.
 """
 
@@ -29,11 +37,55 @@ import ctypes
 import torch
 
 from . import _build
-from .hamming import hamming_distance_matrix
+from .hamming import code_bits, hamming_distance_matrix
 
 launches = 0
 
 hamming_matrix_plain = hamming_distance_matrix
+
+
+def expand_code_bits_plain(codes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int32 [R, W] codes -> (int8 [R, 32W] 0/1 bits, LSB first, int32 [R]
+    popcounts)."""
+    bits = code_bits(codes.contiguous()).view(torch.int8)
+    return bits, bits.sum(dim=1, dtype=torch.int32)
+
+
+# The cases the kernel is held to against its plain version, (q, n, w,
+# fill): the storage build's shapes (a 100k-row build's seed wave, the first
+# add into a 2,048-row index), the TPU kernel tests' shapes, a ragged wide
+# one (16,000 dims at 1 bit); Q or N off the 64 x 128 tile; W = 1, 3, 5
+# (4-byte copies; K off the 8-word step); constant codes, every distance 0
+# or 32 * W ("zeros-ones": all-zero queries against all-one codes); tables
+# that start 4 bytes past a 16-byte boundary ("offset").
+CHECK_CASES = [
+    (4096, 8192, 48, None), (4096, 6144, 48, None), (8, 16, 1, None),
+    (100, 130, 8, None), (128, 256, 48, None), (333, 1000, 500, None),
+    (1, 1, 1, None), (1, 300, 3, None), (63, 65, 5, None), (65, 129, 48, None),
+    (129, 63, 3, None), (300, 1, 5, None), (129, 257, 1, None),
+    (65, 129, 48, "zeros"), (63, 65, 5, "ones"), (129, 257, 3, "zeros-ones"),
+    (65, 63, 48, "ones-zeros"), (129, 300, 48, "offset"),
+]
+
+
+def check_codes(q: int, n: int, w: int, fill, device, generator=None):
+    """The query and code tables of a ``CHECK_CASES`` entry: random, or as
+    ``fill`` says.  Returns (query_codes, codes, d): d is the distance every
+    entry must have for constant codes, else None."""
+    def rand(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                             device=device, generator=generator)
+
+    if fill is None:
+        return rand(q, w), rand(n, w), None
+    if fill == "offset":
+        return rand(q * w + 1)[1:].view(q, w), rand(n * w + 1)[1:].view(n, w), None
+    first, _, second = fill.partition("-")
+    second = second or first
+    const = {"zeros": 0, "ones": -1}
+    return (torch.full((q, w), const[first], dtype=torch.int32, device=device),
+            torch.full((n, w), const[second], dtype=torch.int32, device=device),
+            0 if first == second else 32 * w)
 
 
 def _check(query_codes: torch.Tensor, codes: torch.Tensor) -> None:

@@ -118,23 +118,21 @@ def test_hamming_matrix_wrapper_rejects_bad_inputs():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "q,n,w", [(4096, 8192, 48), (4096, 6144, 48), (8, 16, 1), (100, 130, 8),
-              (128, 256, 48), (333, 1000, 500)]
-)
-def test_hamming_matrix_kernel_matches_plain_on_card(cuda_device, q, n, w):
+    "q,n,w,fill", hamming_matrix.CHECK_CASES,
+    ids=["-".join(map(str, c if c[3] else c[:3])) for c in hamming_matrix.CHECK_CASES])
+def test_hamming_matrix_kernel_matches_plain_on_card(cuda_device, q, n, w, fill):
     """On the card the kernel launches and equals its plain version at the
-    storage build's shapes, the TPU kernel tests' shapes and a ragged wide
-    one."""
+    storage build's shapes, the TPU kernel tests' shapes, ragged edges off
+    the tile and the 8-word step, constant codes and misaligned tables."""
     g = torch.Generator(device=cuda_device).manual_seed(11)
-    qc = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
-                       device=cuda_device, generator=g)
-    cc = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
-                       device=cuda_device, generator=g)
+    qc, cc, const = hamming_matrix.check_codes(q, n, w, fill, cuda_device, g)
     before = hamming_matrix.launches
     got = hamming_matrix.hamming_matrix(qc, cc)
     torch.cuda.synchronize()
     assert hamming_matrix.launches == before + 1
     assert torch.equal(got, hamming_matrix.hamming_matrix_plain(qc, cc))
+    if const is not None:
+        assert bool((got == const).all())
 
 
 @pytest.mark.cuda
