@@ -36,6 +36,15 @@ Phases, each reported on a timestamped, flushed line:
 6. storage build and search: the same corpus and queries with
    build_distance "storage" (the reference's build: Hamming everywhere);
    the same graph checks and recall floor, and both kernels launched.
+5b. windows, on the exact-prune index of phase 3: the "expand", "beam" and
+   "scored" rescore windows at L=100, rescore 300 (recall floor, valid
+   results, no id twice in a row), then the JAX package's ``bench.py``
+   wide points, L=200, rescore 1,500, E=2, for all three (recall, QPS
+   best of 3, peak device memory); edge_gather must launch in every
+   search.
+6. storage build and search: the same corpus and queries with
+   build_distance "storage" (the reference's build: Hamming everywhere);
+   the same graph checks and recall floor, and both kernels launched.
 7. life cycle, 768 wide, storage build: ``build`` on 2,048 rows, 8
    ``add`` batches of 4,096 (the first one's seed wave launches the
    Hamming matrix), ``delete`` of 10%, an ``add`` of 2,048 that lands on
@@ -44,12 +53,26 @@ Phases, each reported on a timestamped, flushed line:
    results, and ``compact`` (count == live rows, all reachable).  The
    reuse add must leave a reader's ``arrays`` (checksum of every tensor)
    and ``external_ids`` as they were and publish new arrays.
+8. refine: the exact-prune build of phase 3 with ``refine_passes=1``
+   (seconds split into ingest / waves / finalize+refine, edge_gather
+   launched inside the refinement pass), the graph checks, and the search
+   of phase 4 beside the unrefined build's recall.
+9. exact: an SBQ build with build_distance "exact" (full-precision
+   traversal) of the first 95,904 rows, the search of phase 4 over them,
+   then one ``add`` of the last 4,096 rows and the graph checks;
+   edge_gather launches in the search only.
+10. plain: a plain-storage cosine build of the corpus (full-precision
+   traversal, no codes) and a search at L=100 (no rescore: the traversal
+   distances are exact), recall against ``ExactIndex``; no kernel
+   launches on this path.  Then, outside the path, the device time of
+   full-precision traversal's gather-dot at a build and a search step.
 
-Each path (phases 3-4, 6 and 7) is driven with the kernels' launch counts
-set to 0 just before it and read just after; the kernels line sums them.
-The peak device memory (``torch.cuda.max_memory_allocated``) is reset at
-the start of each build, each search and the life cycle, and read at its
-end; the summary line carries it.
+Each path (phases 3-4, 5b, 6, 7, 8, 9 and 10) is driven with the
+kernels' launch counts set to 0 just before it and read just after; the
+kernels line sums them.  The peak device memory
+(``torch.cuda.max_memory_allocated``) is reset at the start of each
+build, each search, each add and the life cycle, and read at its end; the
+summary line carries it.
 The run must end within BUDGET_S seconds; each phase has a deadline and
 the builds check it after every wave.  Any failed check exits non-zero.
 Without a CUDA device, or without the package beside this script, it
@@ -74,13 +97,21 @@ BUDGET_S = 600
 DEADLINES = {
     "device": 60,
     "kernel build": 200,
-    "kernel vs plain": 260,
-    "build": 330,
-    "search": 360,
-    "agreement": 380,
-    "storage build": 450,
-    "storage search": 480,
-    "life cycle": 580,
+    "kernel vs plain": 250,
+    "build": 290,
+    "search": 305,
+    "agreement": 315,
+    "windows": 345,
+    "storage build": 380,
+    "storage search": 390,
+    "life cycle": 450,
+    "refine build": 500,
+    "refine search": 510,
+    "exact build": 545,
+    "exact search": 555,
+    "exact add": 565,
+    "plain build": 585,
+    "plain search": 595,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
@@ -109,6 +140,11 @@ MIN_RECALL = 0.80
 # Life cycle: the first build, the add batches, the delete share, the
 # tombstone-reusing add.
 LC_BUILD, LC_BATCH, LC_BATCHES, LC_DELETE, LC_REUSE = 2048, 4096, 8, 0.10, 2048
+# The "exact" path builds on all but the last EXACT_ADD rows and adds them.
+EXACT_ADD = 4096
+# Window phase: (L, rescore, E) points; the wide one is bench.py's.
+WINDOW_POINTS = ((100, 300, 4), (200, 1500, 2))
+WINDOW_STRATEGIES = ("expand", "beam", "scored")
 KERNELS = ("edge_gather", "hamming_matrix")
 
 
@@ -435,39 +471,55 @@ def check_graph(index, label: str) -> str:
             f"(r_max {r_max}), mean {float(deg.float().mean()):.2f}")
 
 
-def phase_build(vectors, build_distance: str, phase: str):
+def phase_build(vectors, phase: str, counts=None, refine_passes: int = 0, **config_kw):
+    """``DiskannIndex.build`` of ``vectors`` with ``IndexConfig(DIM,
+    **config_kw)``; seconds split at the progress marks (the finalize
+    share includes the refinement passes), the graph checks, and, with
+    ``counts``, the kernels' launches between the end of the waves and the
+    end of the build."""
     import torch
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
 
-    config = IndexConfig(num_dimensions=DIM, build_distance=build_distance)
+    config = IndexConfig(num_dimensions=DIM, **config_kw)
+    label = ("plain" if not config.uses_sbq else config.build_distance) + (
+        f", refine_passes={refine_passes}" if refine_passes else "")
     marks = {}
 
     def progress(stage, done, total):
         torch.cuda.synchronize()
         if stage == "training quantizer":
             marks["ingest"] = elapsed()
-            say(f"  ingest done ({total} rows, W={config.num_code_words} words)")
+            say(f"  ingest done ({total} rows, W={config.num_code_words if config.uses_sbq else 0} "
+                f"words)")
         elif stage == "inserting tuples":
             say(f"  wave: {done}/{total} rows in the graph")
         elif done == 0:
             marks["waves"] = elapsed()
-            say("  waves done, finalizing")
+            marks["waves_counts"] = counts() if counts else None
+            say("  waves done, finalizing" + (", refining" if refine_passes else ""))
         else:
             marks["finalize"] = elapsed()
+            marks["finalize_counts"] = counts() if counts else None
         check_deadline(phase)
 
     t = elapsed()
-    index = DiskannIndex.build(vectors, config, progress_callback=progress)
+    index = DiskannIndex.build(vectors, config, progress_callback=progress,
+                               refine_passes=refine_passes)
     torch.cuda.synchronize()
-    times = dict(
-        ingest_s=marks["ingest"] - t,
-        waves_s=marks["waves"] - marks["ingest"],
-        finalize_s=marks["finalize"] - marks["waves"],
-        total_s=elapsed() - t,
-    )
-    say(f"{phase}: {build_distance}, {index.count} rows, ingest {times['ingest_s']:.2f}s, "
-        f"waves {times['waves_s']:.2f}s, finalize {times['finalize_s']:.2f}s; "
+    fin = "finalize_refine_s" if refine_passes else "finalize_s"
+    times = {
+        "ingest_s": marks["ingest"] - t,
+        "waves_s": marks["waves"] - marks["ingest"],
+        fin: marks["finalize"] - marks["waves"],
+        "total_s": elapsed() - t,
+    }
+    if counts:
+        times["launches_after_waves"] = {
+            k: marks["finalize_counts"][k] - marks["waves_counts"][k]
+            for k in marks["waves_counts"]}
+    say(f"{phase}: {label}, {index.count} rows, ingest {times['ingest_s']:.2f}s, "
+        f"waves {times['waves_s']:.2f}s, {fin[:-2].replace('_', '+')} {times[fin]:.2f}s; "
         f"{check_graph(index, phase)}")
     check_deadline(phase)
     return index, times
@@ -478,26 +530,43 @@ def recall_at_10(ids, gt) -> float:
     return float(hits) / (ids.shape[0] * 10)
 
 
-def phase_search(index, vectors, queries, phase: str):
+def ground_truth(vectors, queries, config):
+    """Exact top-10 ids of the queries over ``vectors`` (``ExactIndex``)."""
+    from pgvectorscale_tpu_torch import ExactIndex
+
+    exact = ExactIndex.build(vectors, config)
+    gt, _ = exact.search(queries, 10)
+    return gt
+
+
+def timed_search(index, qdev, params):
+    """Three runs of one top-10 search; (ids, dists, host seconds of each)."""
     import torch
 
-    from pgvectorscale_tpu_torch import ExactIndex, QueryParams
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids, dists = index.search(qdev, 10, params)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    return ids, dists, secs
 
-    exact = ExactIndex.build(vectors, index.config)
-    gt, _ = exact.search(queries, 10)
-    del exact
+
+def phase_search(index, vectors, queries, phase: str, rescores=(50, 300)):
+    """Searches at k=10, L=100 and each rescore, three times each; the
+    recall floor holds at the last rescore."""
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+
+    gt = ground_truth(vectors, queries, index.config)
     qdev = torch.as_tensor(queries).cuda()
     torch.cuda.reset_peak_memory_stats()  # the searches' peak, without the oracle's
     results = {}
-    for rescore in (50, 300):
-        params = QueryParams(search_list_size=100, rescore=rescore)
-        secs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ids, dists = index.search(qdev, 10, params)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t)
+    for rescore in rescores:
+        ids, dists, secs = timed_search(
+            index, qdev, QueryParams(search_list_size=100, rescore=rescore))
         if ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all()):
             fail(f"search at rescore {rescore} returned bad shape or distances")
         recall = recall_at_10(ids, gt)
@@ -507,12 +576,129 @@ def phase_search(index, vectors, queries, phase: str):
         say(f"  rescore {rescore}: recall@10 {recall:.4f}, QPS {NQ / best:.1f} "
             f"(best of {[round(s, 4) for s in secs]} s), beam iterations "
             f"{index.last_search.iters}")
-    if results[300]["recall"] < MIN_RECALL:
-        fail(f"{phase}: recall@10 at rescore 300 is below {MIN_RECALL}")
+    if results[rescores[-1]]["recall"] < MIN_RECALL:
+        fail(f"{phase}: recall@10 at rescore {rescores[-1]} is below {MIN_RECALL}")
     peak = torch.cuda.max_memory_allocated()
     say(f"  {phase}: peak device memory {peak} B")
     check_deadline(phase)
     return results, peak
+
+
+def phase_windows(index, vectors, queries) -> dict:
+    """Every window strategy at each WINDOW_POINTS (L, rescore, E) on the
+    exact-prune index: valid results (ids in range, no id twice in a row,
+    finite distances), recall (floor at rescore 300), QPS best of 3, the
+    peak device memory of each search, and edge_gather launched in each."""
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch.ops import edge_gather
+
+    phase = "windows"
+    gt = ground_truth(vectors, queries, index.config)
+    qdev = torch.as_tensor(queries).cuda()
+    out = {}
+    for l, rescore, e in WINDOW_POINTS:
+        for strategy in WINDOW_STRATEGIES:
+            params = QueryParams(search_list_size=l, rescore=rescore, expand=e,
+                                 window_strategy=strategy)
+            before = edge_gather.launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ids, dists, secs = timed_search(index, qdev, params)
+            peak = torch.cuda.max_memory_allocated()
+            launches = edge_gather.launches - before
+            name = f"{strategy} L={l} rescore={rescore} E={e}"
+            if launches == 0:
+                fail(f"{phase}: {name} did not launch edge_gather")
+            s_ids = torch.sort(ids, dim=1).values
+            if (ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all())
+                    or bool(((ids < 0) | (ids >= index.count)).any())
+                    or bool((s_ids[:, 1:] == s_ids[:, :-1]).any())):
+                fail(f"{phase}: {name} returned invalid results")
+            recall = recall_at_10(ids, gt)
+            out[name] = dict(recall=recall, qps=NQ / min(secs), seconds=secs,
+                             peak_bytes=peak, edge_gather_launches=launches,
+                             iters=index.last_search.iters)
+            say(f"  {name}: recall@10 {recall:.4f}, QPS {NQ / min(secs):.1f} (best of "
+                f"{[round(t, 4) for t in secs]} s), {index.last_search.iters} beam "
+                f"iterations, edge_gather launches {launches}, peak device memory {peak} B")
+            if rescore == 300 and recall < MIN_RECALL:
+                fail(f"{phase}: {name} recall@10 is below {MIN_RECALL}")
+            check_deadline(phase)
+    return out
+
+
+def time_gather_dot(index) -> dict:
+    """Device time of full-precision traversal's gather-dot
+    (``distance.row_distances``, cosine, no kernel of its own) at a build
+    wave's beam step (Q=4,096) and a search step (Q=1,024), E*R = 260
+    random neighbour ids each, beside the least bytes it must move: each
+    distinct row read once, the ids and queries read, the distances
+    written."""
+    import torch
+
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.distance import row_distances
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    vecs = index.arrays.vectors
+    out = {}
+    for q in (4096, 1024):
+        ids = [torch.randint(0, index.count, (q, 260), dtype=torch.int32, device="cuda",
+                             generator=g) for _ in range(4)]
+        qv = vecs[torch.randint(0, index.count, (q,), device="cuda", generator=g)]
+        ms = cuda_time_ms(lambda i: row_distances(vecs, qv, ids[i % 4], DistanceType.COSINE), 8)
+        rows = sum(int(torch.unique(t).numel()) for t in ids) // len(ids)
+        nbytes = rows * DIM * 4 + q * 260 * 8 + q * DIM * 4
+        out[str(q)] = dict(ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
+                           gathered_bytes=q * 260 * DIM * 4)
+        say(f"  gather-dot Q={q} x 260 x {DIM}: {ms:.4f} ms on the card, bytes bound "
+            f"{out[str(q)]['bound_ms']:.4f} ms ({nbytes} B; it writes and reads "
+            f"{q * 260 * DIM * 4} B of gathered rows)")
+    return out
+
+
+def phase_exact(vectors, queries, counts) -> dict:
+    """An SBQ build with build_distance "exact" of all but the last
+    EXACT_ADD rows, its search, then one add of those rows; no kernel
+    launches in the build or the add, edge_gather in the search."""
+    import numpy as np
+    import torch
+
+    out = {}
+    n0 = N - EXACT_ADD
+    start = counts()
+    torch.cuda.reset_peak_memory_stats()
+    index, out["build_s"] = phase_build(vectors[:n0], "exact build", build_distance="exact")
+    out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    after_build = counts()
+    out["search"], out["search_peak_bytes"] = phase_search(
+        index, vectors[:n0], queries, "exact search")
+    after_search = counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = elapsed()
+    ids = index.add(vectors[n0:])
+    torch.cuda.synchronize()
+    out["add_s"] = elapsed() - t
+    out["add_peak_bytes"] = torch.cuda.max_memory_allocated()
+    after_add = counts()
+    if not np.array_equal(ids, np.arange(n0, N)):
+        fail("exact add: unexpected ids")
+    out["launches"] = {
+        "build": {k: after_build[k] - start[k] for k in start},
+        "search": {k: after_search[k] - after_build[k] for k in start},
+        "add": {k: after_add[k] - after_search[k] for k in start},
+    }
+    say(f"  exact add: {EXACT_ADD} rows in {out['add_s']:.2f}s, peak device memory "
+        f"{out['add_peak_bytes']} B; {check_graph(index, 'exact add')}; "
+        f"launches {out['launches']}")
+    if any(out["launches"]["build"].values()) or any(out["launches"]["add"].values()):
+        fail("the exact build or add launched a kernel: traversal must be full precision")
+    if out["launches"]["search"]["edge_gather"] == 0:
+        fail("the exact index's search did not launch edge_gather")
+    check_deadline("exact add")
+    return out
 
 
 def phase_life_cycle(vectors, queries) -> dict:
@@ -682,6 +868,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from pgvectorscale_tpu_torch.config import StorageLayout
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
     from pgvectorscale_tpu_torch.ops import _build, edge_gather, hamming_matrix
 
@@ -713,7 +900,7 @@ def main() -> int:
 
         reset_counts()  # the exact-prune path starts here
         torch.cuda.reset_peak_memory_stats()
-        index, build_times = phase_build(vectors, "exact-prune", "build")
+        index, build_times = phase_build(vectors, "build", build_distance="exact-prune")
         peaks["exact-prune build"] = torch.cuda.max_memory_allocated()
         in_build = read_counts()
         say(f"phase 3 build: launches {in_build}; peak device memory "
@@ -728,12 +915,19 @@ def main() -> int:
         if eg_build == 0 or eg_all == eg_build:
             fail("the exact-prune path did not launch the edge_gather kernel")
         phase_agreement(index, queries)
+
+        reset_counts()  # the windows path starts here
+        windows = phase_windows(index, vectors, queries)
+        paths["windows"] = read_counts()  # the windows path ends here
+        peaks["windows"] = max(w["peak_bytes"] for w in windows.values())
+        say(f"phase 5b windows: launches {paths['windows']}; peak device memory of a "
+            f"search up to {peaks['windows']} B")
         del index
         torch.cuda.empty_cache()
 
         reset_counts()  # the storage path starts here
         torch.cuda.reset_peak_memory_stats()
-        s_index, s_build_times = phase_build(vectors, "storage", "storage build")
+        s_index, s_build_times = phase_build(vectors, "storage build", build_distance="storage")
         peaks["storage build"] = torch.cuda.max_memory_allocated()
         s_in_build = read_counts()
         say(f"phase 6 storage build: launches {s_in_build}; peak device memory "
@@ -758,6 +952,51 @@ def main() -> int:
             f"{peaks['life cycle']} B")
         if min(paths["life cycle"].values()) == 0:
             fail("the life cycle did not launch both kernels")
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the refine path starts here
+        torch.cuda.reset_peak_memory_stats()
+        r_index, r_build_times = phase_build(vectors, "refine build", counts=read_counts,
+                                             refine_passes=1, build_distance="exact-prune")
+        peaks["refine build"] = torch.cuda.max_memory_allocated()
+        r_search, peaks["refine search"] = phase_search(r_index, vectors, queries,
+                                                        "refine search")
+        paths["refine"] = read_counts()  # the refine path ends here
+        in_refine = r_build_times["launches_after_waves"]["edge_gather"]
+        say(f"phase 8 refine: recall@10 {r_search[300]['recall']:.4f} at rescore 300 "
+            f"(unrefined build {search[300]['recall']:.4f}), {r_search[50]['recall']:.4f} at "
+            f"rescore 50 (unrefined {search[50]['recall']:.4f}); launches {paths['refine']}, "
+            f"edge_gather {in_refine} in finalize+refine; peak device memory "
+            f"{peaks['refine build']} B")
+        if in_refine == 0:
+            fail("the refinement pass did not launch edge_gather")
+        del r_index
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the exact path starts here
+        exact = phase_exact(vectors, queries, read_counts)
+        paths["exact"] = read_counts()  # the exact path ends here
+        peaks.update({f"exact {k[:-11]}": exact[k] for k in
+                      ("build_peak_bytes", "search_peak_bytes", "add_peak_bytes")})
+        say(f"phase 9 exact: recall@10 {exact['search'][50]['recall']:.4f} (rescore 50), "
+            f"{exact['search'][300]['recall']:.4f} (rescore 300); launches {paths['exact']}; "
+            f"peak device memory of the build {exact['build_peak_bytes']} B")
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the plain path starts here
+        torch.cuda.reset_peak_memory_stats()
+        p_index, p_build_times = phase_build(vectors, "plain build",
+                                             storage_layout=StorageLayout.PLAIN)
+        peaks["plain build"] = torch.cuda.max_memory_allocated()
+        p_search, peaks["plain search"] = phase_search(p_index, vectors, queries,
+                                                       "plain search", rescores=(50,))
+        paths["plain"] = read_counts()  # the plain path ends here
+        say(f"phase 10 plain: recall@10 {p_search[50]['recall']:.4f} at L=100; launches "
+            f"{paths['plain']}; peak device memory of the build {peaks['plain build']} B")
+        if any(paths["plain"].values()):
+            fail("the plain path launched a kernel")
+        gather_dot = time_gather_dot(p_index)
+        del p_index
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 
@@ -786,7 +1025,14 @@ def main() -> int:
         "build_s": build_times, "search": {str(k): v for k, v in search.items()},
         "storage_build_s": s_build_times,
         "storage_search": {str(k): v for k, v in s_search.items()},
-        "life_cycle": life, "elapsed_s": elapsed(),
+        "life_cycle": life, "windows": windows,
+        "refine_build_s": r_build_times,
+        "refine_search": {str(k): v for k, v in r_search.items()},
+        "exact": {**exact, "search": {str(k): v for k, v in exact["search"].items()}},
+        "plain_build_s": p_build_times,
+        "plain_search": {str(k): v for k, v in p_search.items()},
+        "gather_dot_ms": gather_dot,
+        "elapsed_s": elapsed(),
     }
     say(f"summary {json.dumps(summary)}")
     if elapsed() > BUDGET_S:

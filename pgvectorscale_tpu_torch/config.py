@@ -232,6 +232,16 @@ class IndexConfig:
     def uses_sbq(self) -> bool:
         return self.storage_layout == StorageLayout.SBQ
 
+    @property
+    def build_traversal_uses_codes(self) -> bool:
+        """Build-time candidate generation measure (see build_distance)."""
+        return self.uses_sbq and self.build_distance != "exact"
+
+    @property
+    def build_prune_uses_codes(self) -> bool:
+        """Build-time prune/occlusion measure (see build_distance)."""
+        return self.uses_sbq and self.build_distance == "storage"
+
     # ------------------------------------------------------------------
     # Serialization (for checkpoints)
     # ------------------------------------------------------------------

@@ -92,6 +92,37 @@ def gathered_distances(
     return _from_dots(dots, distance_type)
 
 
+# Bytes of one chunk of gathered rows (twice that for L2, whose
+# differences are a second tensor of the same size): ``row_distances``
+# gathers at most this much at once.  Rows are independent, so the chunking
+# changes no result.
+GATHER_CHUNK_BYTES = 1 << 30
+
+
+def row_distances(
+    vectors: torch.Tensor,  # f32[cap, D]
+    query_vecs: torch.Tensor,  # f32[Q, Dq], Dq <= D
+    ids: torch.Tensor,  # i32[Q, M] (clamped at 0; callers mask)
+    distance_type: DistanceType,
+) -> torch.Tensor:
+    """Distances from each query to the rows ``vectors[ids]`` on their
+    first ``Dq`` dims (the indexed prefix), ``[Q, M]``: the JAX package's
+    gather and ``gathered_distances``, over chunks of queries."""
+    q, m = ids.shape
+    dq = query_vecs.shape[-1]
+    table = vectors[:, :dq]
+    safe = ids.clamp_min(0).long()
+    per_query = m * dq * 4 * (2 if distance_type == DistanceType.L2 else 1)
+    chunk = max(1, GATHER_CHUNK_BYTES // max(per_query, 1))
+    if chunk >= q:
+        return gathered_distances(table[safe], query_vecs, distance_type)
+    return torch.cat([
+        gathered_distances(table[safe[i : i + chunk]], query_vecs[i : i + chunk],
+                           distance_type)
+        for i in range(0, q, chunk)
+    ])
+
+
 def preprocess_query(
     query: torch.Tensor, distance_type: DistanceType
 ) -> torch.Tensor:

@@ -1,21 +1,28 @@
 """Wave-based Vamana graph construction (PyTorch port of ``graph/build.py``).
 
-The JAX package's wave build for SBQ indexes: candidates come from a
-Hamming beam search over a snapshot of the adjacency (or, while the graph
-is small, from a brute-force scan); one batched RobustPrune turns them
-into neighbour lists; reverse edges are appended with a sort-based
-scatter, and rows that overflow are re-pruned in the same wave.
-``finalize`` trims every row to R and repairs orphans.
+The JAX package's wave build: candidates come from a beam search (or,
+while the graph is small, from a brute-force scan); one batched
+RobustPrune turns them into neighbour lists; reverse edges are appended
+with a sort-based scatter, and rows that overflow are re-pruned in the
+same wave.  ``finalize`` trims every row to R and repairs orphans.  A
+refinement wave (``insert_wave`` with ``n_existing=None`` and
+``include_existing``) re-inserts nodes against the finished graph with
+their current neighbours in contention.
 
-Two build measures (``IndexConfig.build_distance``):
+The build measures (``IndexConfig.build_distance``, SBQ storage):
 
-- ``exact-prune`` (default): brute-force seeds, candidate distances and the
-  prune's pairwise distances are full precision; beam-search candidates
-  are re-measured in full precision.
+- ``exact-prune`` (default): traversal scores Hamming distances on the
+  codes over a snapshot of the adjacency; brute-force seeds, candidate
+  distances and the prune's pairwise distances are full precision, and
+  beam-search candidates are re-measured in full precision.
 - ``storage`` (the reference's own build, sbq/mod.rs:161-190): every
   distance is Hamming on the codes.  The brute-force seed scan goes
   through the Hamming-matrix kernel, and the prune's pairwise distances
   come from the popcount-dot identity on unpacked bits.
+- ``exact``: every distance is full precision, traversal included; it
+  reads the live adjacency as it stood at the start of the wave.
+
+Plain storage (no codes) builds as ``exact`` does.
 
 Every step is batched over the wave.  Python loops run only where the
 JAX package runs a sequential loop: over waves, beam iterations,
@@ -34,7 +41,7 @@ from typing import Optional
 import torch
 
 from ..config import DistanceType, IndexConfig
-from ..distance import gathered_distances
+from ..distance import row_distances
 from ..ops.hamming import hamming_gather
 from ..ops.hamming_matrix import hamming_matrix
 from ..store import INVALID_ID, GraphArrays, dequant_rows
@@ -80,17 +87,10 @@ class BuildContext:
     """Build-wide settings derived once from the config."""
 
     def __init__(self, config: IndexConfig):
-        if not config.uses_sbq or config.build_distance == "exact":
-            raise NotImplementedError(
-                "the port builds SBQ indexes with build_distance "
-                "'exact-prune' or 'storage'"
-            )
         if config.has_labels:
             raise NotImplementedError("labeled indexes are not ported yet")
         self.config = config
         self.alphas = alpha_schedule(config.max_alpha)
-        # The prune measure: Hamming on codes for "storage", else exact.
-        self.prune_use_codes = config.build_distance == "storage"
         self.code_bits = config.dims_to_index * config.bits_per_dimension
 
 
@@ -103,13 +103,6 @@ def _set_rows(table: torch.Tensor, row_ids: torch.Tensor, rows) -> torch.Tensor:
     idx = torch.where((row_ids >= 0) & (row_ids < n), row_ids, n).long()
     ext[idx] = rows
     return ext[:n]
-
-
-def _exact_distances(arrays, query_vecs, ids, distance_type, trunc_dims):
-    """f32[B, C] full-precision distances from each row's query to its
-    candidate ids (clamped; callers mask invalid ids)."""
-    rows = dequant_rows(arrays.vectors, ids.clamp_min(0).long())[..., :trunc_dims]
-    return gathered_distances(rows, query_vecs, distance_type)
 
 
 def candidate_pair_distances(
@@ -310,7 +303,7 @@ def _prune_rows_core(
         ).to(torch.float32)
     else:
         qv = dequant_rows(arrays.vectors, safe_rows)[:, :trunc_dims]
-        cand_d = _exact_distances(arrays, qv, cand_ids, distance_type, trunc_dims)
+        cand_d = row_distances(arrays.vectors, qv, cand_ids, distance_type)
     cand_d = torch.where(cand_ids == INVALID_ID, torch.inf, cand_d)
     cand_ids, cand_d = _dedup_candidates(cand_ids, cand_d)
     nbr_ids, _ = prune_candidate_sets(
@@ -333,9 +326,11 @@ def _overflow_prune(
     **prune_kw,
 ) -> GraphArrays:
     """Re-prune up to MAX_OVERFLOW_ROWS distinct full rows, each with
-    candidates = existing + up to INCOMING_CAP rejected reverse edges."""
+    candidates = existing + up to INCOMING_CAP rejected reverse edges.
+    The JAX package pads the batch to MAX_OVERFLOW_ROWS rows to keep one
+    compiled shape; padded rows write nothing, so the port prunes only
+    the rows that overflowed (one host read of their count)."""
     e = edge_dst.shape[0]
-    m = min(MAX_OVERFLOW_ROWS, e)
     dev = edge_dst.device
 
     key = torch.where(rejected, edge_dst, _I32_MAX)
@@ -343,6 +338,7 @@ def _overflow_prune(
     is_first = torch.cat(
         [torch.ones((1,), dtype=torch.bool, device=dev), s[1:] != s[:-1]]
     ) & (s != _I32_MAX)
+    m = min(MAX_OVERFLOW_ROWS, int(is_first.sum()))
     uniq = torch.sort(torch.where(is_first, s, _I32_MAX)).values[:m]
     row_ids = torch.where(uniq != _I32_MAX, uniq, INVALID_ID)
 
@@ -380,15 +376,25 @@ def _wave_step(
     trunc_dims: int,
     prune_use_codes: bool,
     code_bits: int,
+    use_codes: bool = True,
+    include_existing: bool = False,
 ) -> GraphArrays:
     """One wave: candidates, prune, row writes, backlinks and the overflow
-    prune.  Traversal always scores on the codes; ``prune_use_codes``
-    (storage builds) makes the brute-force seeds, the candidate distances
-    and the prune Hamming too, else they are full precision and searched
-    candidates are re-measured (exact-prune)."""
+    prune.
+
+    ``use_codes`` is the traversal measure: Hamming on the codes over
+    ``snap_adjacency`` (which a searched wave then needs), else full
+    precision over the live adjacency, as it stands when the wave starts.
+    ``prune_use_codes`` (storage builds) makes the brute-force seeds, the
+    candidate distances and the prune Hamming too, else they are full
+    precision, and candidates that Hamming traversal generated are
+    re-measured (exact-prune).  ``include_existing`` (refinement) adds
+    each node's current neighbours to its candidates, scored by the
+    prune's measure."""
     l = search_list_size
     safe_ids = node_ids.clamp_min(0).long()
     query_codes = arrays.codes[safe_ids]
+    query_vecs = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
     prune_kw = dict(
         use_codes=prune_use_codes, code_bits=code_bits,
         distance_type=distance_type, alphas=alphas,
@@ -407,25 +413,40 @@ def _wave_step(
             use_codes=prune_use_codes,
         )
     else:
-        if snap_adjacency is None:
-            raise ValueError("a searched wave needs the snapshot's adjacency")
+        if use_codes and snap_adjacency is None:
+            raise ValueError("a searched wave on codes needs the snapshot's adjacency")
         b = node_ids.shape[0]
         start_ids = torch.full(
             (b, 1), arrays.default_start, dtype=torch.int32, device=arrays.device
         )
         res = beam_search(
-            arrays._replace(adjacency=snap_adjacency), query_codes, start_ids,
+            arrays._replace(adjacency=snap_adjacency) if use_codes else arrays,
+            query_codes, start_ids,
             search_list_size=l,
             max_iters=max_iters,
             expand_factor=min(BUILD_EXPAND_FACTOR, l),
+            query_vecs=query_vecs,
+            use_codes=use_codes,
+            distance_type=distance_type,
         )
         cand_ids, cand_dists = _dedup_candidates(res.hist_ids, res.hist_dists)
-        if not prune_use_codes:
-            # exact-prune: re-measure the Hamming-generated candidates.
-            query_vecs = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
-            ex = _exact_distances(arrays, query_vecs, cand_ids, distance_type,
-                                  trunc_dims)
-            cand_dists = torch.where(cand_ids == INVALID_ID, torch.inf, ex)
+
+    if include_existing:
+        # Refinement: the current neighbours stay in contention.
+        existing = arrays.adjacency[safe_ids]
+        if prune_use_codes:
+            ex_d = hamming_gather(query_codes, arrays.codes, existing).to(torch.float32)
+        else:
+            ex_d = row_distances(arrays.vectors, query_vecs, existing, distance_type)
+        ex_d = torch.where(existing == INVALID_ID, torch.inf, ex_d)
+        cand_ids, cand_dists = _dedup_candidates(
+            torch.cat([cand_ids, existing], dim=1), torch.cat([cand_dists, ex_d], dim=1)
+        )
+
+    if use_codes and not prune_use_codes and not brute:
+        # exact-prune: re-measure the Hamming-generated candidates.
+        ex = row_distances(arrays.vectors, query_vecs, cand_ids, distance_type)
+        cand_dists = torch.where(cand_ids == INVALID_ID, torch.inf, ex)
 
     nbr_ids, _ = prune_candidate_sets(
         arrays, node_ids, cand_ids, cand_dists, **prune_kw
@@ -456,29 +477,39 @@ def insert_wave(
     n_real: int = 0,
     prefix_rows: Optional[int] = None,
     snap_adjacency: Optional[torch.Tensor] = None,
+    include_existing: bool = False,
 ) -> GraphArrays:
     """Insert a wave of ``n_real`` stored rows (INVALID_ID padded).
 
     ``n_existing``: the wave's ids follow the ``n_existing`` rows already
     in the graph, so candidates are rows < n_existing + n_real.
     ``prefix_rows``: the wave's ids are scattered below ``prefix_rows``
-    (tombstone reuse); candidates are rows < prefix_rows.  Exactly one of
+    (tombstone reuse); candidates are rows < prefix_rows.  At most one of
     the two is given.  While the candidate rows number at most
     BRUTE_CANDIDATE_THRESHOLD the candidates come from a brute-force scan,
-    else from a beam search over the snapshot."""
-    if (n_existing is None) == (prefix_rows is None):
-        raise ValueError("give exactly one of n_existing and prefix_rows")
+    else from a beam search.  With neither (refinement) the wave always
+    beam-searches the whole graph.
+
+    ``snap_adjacency`` is what a beam search on codes traverses; a
+    full-precision traversal (``build_traversal_uses_codes`` False) reads
+    the live adjacency and ignores it."""
+    if n_existing is not None and prefix_rows is not None:
+        raise ValueError("give at most one of n_existing and prefix_rows")
     config = ctx.config
     l = config.search_list_size
     if prefix_rows is not None:
         brute = prefix_rows <= BRUTE_CANDIDATE_THRESHOLD
         prefix = prefix_rows
-    else:
+    elif n_existing is not None:
         brute = n_existing <= BRUTE_CANDIDATE_THRESHOLD
         prefix = n_existing + n_real
+    else:
+        brute = False
+        prefix = n_real
+    use_codes = config.build_traversal_uses_codes
     return _wave_step(
         arrays, node_ids, prefix,
-        None if brute else snap_adjacency,
+        None if brute or not use_codes else snap_adjacency,
         search_list_size=l,
         max_iters=_build_max_iters(l),
         brute=brute,
@@ -487,8 +518,10 @@ def insert_wave(
         alphas=ctx.alphas,
         num_neighbors=config.num_neighbors,
         trunc_dims=config.dims_to_index,
-        prune_use_codes=ctx.prune_use_codes,
+        prune_use_codes=config.build_prune_uses_codes,
         code_bits=ctx.code_bits,
+        use_codes=use_codes,
+        include_existing=include_existing,
     )
 
 
@@ -503,16 +536,14 @@ def finalize(arrays: GraphArrays, ctx: BuildContext) -> GraphArrays:
     over = (row < arrays.count) & (deg > config.num_neighbors)
     order = torch.sort(torch.where(over, row, _I32_MAX)).values
     n_over = int(over.sum())
-    inc = torch.full((PRUNE_BATCH, 1), INVALID_ID, dtype=torch.int32, device=dev)
+    # Batches of PRUNE_BATCH rows; the last one is not padded (padded rows
+    # write nothing).
     for i in range(0, n_over, PRUNE_BATCH):
-        batch = order[i : i + PRUNE_BATCH]
-        batch = torch.where(batch == _I32_MAX, INVALID_ID, batch)
-        batch = torch.nn.functional.pad(
-            batch, (0, PRUNE_BATCH - batch.shape[0]), value=INVALID_ID
-        )
+        batch = order[i : min(i + PRUNE_BATCH, n_over)]
+        inc = torch.full((batch.shape[0], 1), INVALID_ID, dtype=torch.int32, device=dev)
         arrays = _prune_rows_core(
             arrays, batch, inc,
-            use_codes=ctx.prune_use_codes, code_bits=ctx.code_bits,
+            use_codes=config.build_prune_uses_codes, code_bits=ctx.code_bits,
             distance_type=config.distance_type, alphas=ctx.alphas,
             num_neighbors=config.num_neighbors, trunc_dims=config.dims_to_index,
         )

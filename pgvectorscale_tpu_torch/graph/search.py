@@ -7,27 +7,34 @@ in the JAX package:
   the search ends when every beam entry is visited or the visit budget is
   spent (the reference's ``ListSearchResult::visit_closest`` rule).
 - Each step visits the E best unvisited entries, gathers their adjacency
-  rows, scores the neighbours (Hamming on SBQ codes through the
-  edge-gather kernel, which reads the codes through the adjacency), drops
-  duplicates and merges the candidates into the beam with one bitonic
-  merge.
+  rows, scores the neighbours, drops duplicates and merges the candidates
+  into the beam with one bitonic merge.  SBQ traversal scores Hamming
+  distances on the codes through the edge-gather kernel, which reads the
+  codes through the adjacency; full-precision traversal (plain storage,
+  and builds with ``build_distance="exact"``) gathers the rows' indexed
+  prefix and takes L2, inner-product or cosine distances.
 - The visit history doubles as the build-time candidate set.
+- ``window_n`` > 0 keeps a side buffer of the best ``window_n`` scored
+  candidates seen anywhere in the search (the "scored" rescore window),
+  merged by the beam's network without visited flags.
 
 The loop is a Python loop over iterations with one host read per
 iteration (the termination test); everything inside an iteration is
 batched tensor work.  Ties follow the JAX package: ``lax.top_k`` and
 ``lax.sort`` become stable ``torch.sort``, and the bitonic network is the
 same network, so equal inputs give equal beams.  Only the unfiltered
-search without a scored-candidate window is ported.
+search is ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from ..config import DistanceType
+from ..distance import row_distances
 from ..ops.edge_gather import hamming_edge_gather
 from ..ops.hamming import hamming_gather
 from ..store import INVALID_ID, GraphArrays
@@ -42,38 +49,33 @@ def _stable_sort_by(key: torch.Tensor, *vals: torch.Tensor):
     return (s_key, *[torch.gather(v, 1, order) for v in vals])
 
 
-def merge_sorted_into_beam(
-    beam_d: torch.Tensor,  # f32[Q, L] ascending
-    beam_ids: torch.Tensor,  # i32[Q, L]
-    beam_vis: torch.Tensor,  # bool[Q, L]
+def _merge_sorted(
+    d0: torch.Tensor,  # f32[Q, W] ascending
+    tag0: torch.Tensor,  # i32[Q, W] payload
     cand_d: torch.Tensor,  # f32[Q, E] unsorted (INF for invalid)
-    cand_ids: torch.Tensor,  # i32[Q, E]
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Merge candidates into the sorted beam and keep the best L.
+    cand_tag: torch.Tensor,  # i32[Q, E]
+    pad_tag: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge candidates into a sorted row and keep the best W.
 
     The candidates are sorted (stable) and reversed, so
-    [beam ascending | INF pad | candidates descending] is bitonic, and one
+    [row ascending | INF pad | candidates descending] is bitonic, and one
     bitonic-merge network sorts it: log2(n) compare-exchange stages, the
     same network as the JAX package's, so ties land where they land there.
-    Ids and visited flags travel together as ``2*id + visited``."""
-    q, bl = beam_d.shape
+    The payload travels with its distance."""
+    q, wl = d0.shape
     er = cand_d.shape[1]
-    cd, cid = _stable_sort_by(cand_d, cand_ids)
-    cd, cid = cd.flip(1), cid.flip(1)
+    cd, ctag = _stable_sort_by(cand_d, cand_tag)
+    cd, ctag = cd.flip(1), ctag.flip(1)
 
-    n = 1 << (bl + er - 1).bit_length()
-    pad = n - bl - er
-    dev = beam_d.device
+    n = 1 << (wl + er - 1).bit_length()
+    pad = n - wl - er
+    dev = d0.device
     d = torch.cat(
-        [beam_d, torch.full((q, pad), INF, dtype=torch.float32, device=dev), cd],
-        dim=1,
+        [d0, torch.full((q, pad), INF, dtype=torch.float32, device=dev), cd], dim=1
     )
     tag = torch.cat(
-        [
-            beam_ids * 2 + beam_vis.to(torch.int32),
-            torch.full((q, pad), 2 * INVALID_ID, dtype=torch.int32, device=dev),
-            cid * 2,
-        ],
+        [tag0, torch.full((q, pad), pad_tag, dtype=torch.int32, device=dev), ctag],
         dim=1,
     )
     stride = n // 2
@@ -90,8 +92,38 @@ def merge_sorted_into_beam(
             [torch.where(swap, hi_t, lo_t), torch.where(swap, lo_t, hi_t)], dim=2
         ).view(q, n)
         stride //= 2
-    tag = tag[:, :bl]
-    return d[:, :bl], torch.div(tag, 2, rounding_mode="floor"), (tag & 1).bool()
+    return d[:, :wl], tag[:, :wl]
+
+
+def merge_sorted_into_beam(
+    beam_d: torch.Tensor,  # f32[Q, L] ascending
+    beam_ids: torch.Tensor,  # i32[Q, L]
+    beam_vis: torch.Tensor,  # bool[Q, L]
+    cand_d: torch.Tensor,  # f32[Q, E] unsorted (INF for invalid)
+    cand_ids: torch.Tensor,  # i32[Q, E]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge candidates into the sorted beam and keep the best L (one
+    bitonic merge, ``_merge_sorted``).  Ids and visited flags travel
+    together as ``2*id + visited``."""
+    d, tag = _merge_sorted(
+        beam_d, beam_ids * 2 + beam_vis.to(torch.int32), cand_d, cand_ids * 2,
+        2 * INVALID_ID,
+    )
+    return d, torch.div(tag, 2, rounding_mode="floor"), (tag & 1).bool()
+
+
+def merge_sorted_into_window(
+    win_d: torch.Tensor,  # f32[Q, W] ascending
+    win_ids: torch.Tensor,  # i32[Q, W]
+    cand_d: torch.Tensor,  # f32[Q, E] unsorted (INF for invalid)
+    cand_ids: torch.Tensor,  # i32[Q, E]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge a scored-candidate block into the rescore-window buffer and
+    keep the best W: the beam's merge without visited flags.  The window
+    may hold an id twice (a candidate evicted from the beam and proposed
+    again carries the same distance); the query path dedups once, before
+    finalize."""
+    return _merge_sorted(win_d, win_ids, cand_d, cand_ids, INVALID_ID)
 
 
 class SearchResult(NamedTuple):
@@ -103,14 +135,27 @@ class SearchResult(NamedTuple):
     n_visited: torch.Tensor  # i32[Q]
     n_dist_comps: torch.Tensor  # i32[Q]
     iters: int
+    window_ids: torch.Tensor  # i32[Q, Wn] scored-candidate window ([Q, 1] off)
+    window_dists: torch.Tensor  # f32[Q, Wn]
 
 
 def _candidate_distances(
-    arrays: GraphArrays, query_codes: torch.Tensor, ids: torch.Tensor
+    arrays: GraphArrays,
+    query_vecs: torch.Tensor,  # f32[Q, Dt] (indexed prefix; unused on codes)
+    query_codes: torch.Tensor,  # i32[Q, W]
+    ids: torch.Tensor,  # i32[Q, R]
+    *,
+    use_codes: bool,
+    distance_type: DistanceType,
 ) -> torch.Tensor:
-    """Hamming distances from each query to its candidate ids: f32[Q, R]
-    (SBQ storage; plain storage's full-precision traversal is not ported)."""
-    return hamming_gather(query_codes, arrays.codes, ids).to(torch.float32)
+    """Distances from each query to its candidate ids, f32[Q, R]: Hamming
+    on the codes when ``use_codes``, else full precision on the rows'
+    first ``Dt`` dims (stored vectors are full width, traversal uses the
+    indexed prefix; the rescore uses the full vector later).  Invalid ids
+    are clamped; callers mask them."""
+    if use_codes:
+        return hamming_gather(query_codes, arrays.codes, ids).to(torch.float32)
+    return row_distances(arrays.vectors, query_vecs, ids, distance_type)
 
 
 def get_start_ids(arrays: GraphArrays, num_queries: int) -> torch.Tensor:
@@ -123,18 +168,31 @@ def get_start_ids(arrays: GraphArrays, num_queries: int) -> torch.Tensor:
 
 def beam_search(
     arrays: GraphArrays,
-    query_codes: torch.Tensor,  # i32[Q, W]
+    query_codes: torch.Tensor,  # i32[Q, W] (W == 0 for plain storage)
     start_ids: torch.Tensor,  # i32[Q, S]
     *,
     search_list_size: int,
     max_iters: int,
     expand_factor: int = 1,
     track_hist: bool = True,
+    query_vecs: Optional[torch.Tensor] = None,  # f32[Q, Dt]
+    use_codes: bool = True,
+    distance_type: DistanceType = DistanceType.COSINE,
+    window_n: int = 0,
 ) -> SearchResult:
-    """Batched greedy beam search over SBQ codes; ``expand_factor`` (E)
-    frontier nodes are visited per iteration, ``max_iters`` is the visit
-    budget.  The neighbours are scored by the edge-gather kernel, which
-    reads ``arrays.codes`` through ``arrays.adjacency``."""
+    """Batched greedy beam search; ``expand_factor`` (E) frontier nodes are
+    visited per iteration, ``max_iters`` is the visit budget.
+
+    ``use_codes``: the neighbours are scored by the edge-gather kernel,
+    which reads ``arrays.codes`` through ``arrays.adjacency``.  Otherwise
+    the start nodes and the neighbours are scored in full precision
+    against ``query_vecs`` (the queries' indexed prefix) under
+    ``distance_type``, and the kernel is not called.
+
+    ``window_n`` > 0 keeps the best ``window_n`` scored candidates of the
+    whole search in ``window_ids``/``window_dists``, seeded from the
+    sorted start beam, with one window merge per step before the beam
+    merge; with 0 the window stays one column wide."""
     q, s = start_ids.shape
     l = search_list_size
     r_max = arrays.max_degree
@@ -142,8 +200,16 @@ def beam_search(
     e = expand_factor
     if not 1 <= e <= l:
         raise ValueError(f"expand_factor {e} must be in [1, {l}]")
+    if not use_codes and query_vecs is None:
+        raise ValueError("full-precision traversal needs query_vecs")
     dev = start_ids.device
     i32 = dict(dtype=torch.int32, device=dev)
+
+    def dist_fn(ids: torch.Tensor) -> torch.Tensor:
+        return _candidate_distances(
+            arrays, query_vecs, query_codes, ids,
+            use_codes=use_codes, distance_type=distance_type,
+        )
 
     # ---- init: the start nodes, deduplicated, sorted into the beam ----
     start_valid = start_ids >= 0
@@ -153,7 +219,7 @@ def beam_search(
     dup = torch.any(eq & earlier & start_valid[:, None, :], dim=-1)
     start_valid = start_valid & ~dup
     start_dists = torch.where(
-        start_valid, _candidate_distances(arrays, query_codes, start_ids), INF
+        start_valid, dist_fn(start_ids), INF
     )
     n_comps = start_valid.sum(dim=1, dtype=torch.int32)
 
@@ -175,6 +241,17 @@ def beam_search(
     hist_ids = torch.full((q, h_cap + 1), INVALID_ID, **i32)
     hist_dists = torch.full((q, h_cap + 1), INF, dtype=torch.float32, device=dev)
     n_visited = torch.zeros((q,), **i32)
+
+    # The scored-candidate window, seeded from the sorted start beam so the
+    # start nodes are rescore candidates too.
+    wn = window_n if window_n > 0 else 1
+    win_pad = max(wn - l, 0)
+    win_ids = torch.cat([beam_ids, torch.full((q, win_pad), INVALID_ID, **i32)],
+                        dim=1)[:, :wn]
+    win_dists = torch.cat(
+        [beam_dists, torch.full((q, win_pad), INF, dtype=torch.float32, device=dev)],
+        dim=1,
+    )[:, :wn]
 
     iter_bound = -(-max_iters // e) + 1
     er = e * r_max
@@ -215,9 +292,12 @@ def beam_search(
         in_beam = torch.any(nbrs[:, :, None] == beam_ids[:, None, :], dim=-1)
         valid = valid & ~in_beam
 
-        cand_d_raw = hamming_edge_gather(
-            arrays.codes, arrays.adjacency, safe_sel.contiguous(), query_codes
-        )
+        if use_codes:
+            cand_d_raw = hamming_edge_gather(
+                arrays.codes, arrays.adjacency, safe_sel.contiguous(), query_codes
+            )
+        else:
+            cand_d_raw = dist_fn(nbrs)
 
         # Dedup within the candidate row: broadcast compare for narrow
         # rows, sort by id + adjacent equality for wide ones (the JAX
@@ -244,6 +324,10 @@ def beam_search(
             cand_d = torch.where(valid, s_d, INF)
         n_comps = n_comps + valid.sum(dim=1, dtype=torch.int32)
 
+        if window_n > 0:
+            win_dists, win_ids = merge_sorted_into_window(
+                win_dists, win_ids, cand_d, nbrs
+            )
         beam_dists, beam_ids, beam_visited = merge_sorted_into_beam(
             beam_dists, beam_ids, beam_visited, cand_d, nbrs
         )
@@ -258,4 +342,6 @@ def beam_search(
         n_visited=n_visited,
         n_dist_comps=n_comps,
         iters=it,
+        window_ids=win_ids,
+        window_dists=win_dists,
     )

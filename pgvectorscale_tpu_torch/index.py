@@ -1,12 +1,13 @@
 """DiskannIndex: the index's life cycle (PyTorch port of ``index.py``).
 
-The slice of the JAX package's public index that unlabeled f32 SBQ
-indexes run: ``build`` (ingest, wave inserts, finalize; ``exact-prune``
-and ``storage`` builds; N may be 0), ``add`` (tombstone reuse first, then
-fresh rows), ``delete`` / ``delete_external``, ``compact``, ``search``
-with the "expand" rescore window, and ``save`` / ``load`` in the JAX
-package's checkpoint format (version 3; versions 1-2 are migrated on
-load).  Search results are internal row ids; ``to_external`` maps them.
+The slice of the JAX package's public index that unlabeled f32 indexes
+run, SBQ or plain storage: ``build`` (ingest, wave inserts, finalize,
+optional refinement passes; every ``build_distance``; N may be 0),
+``add`` (tombstone reuse first, then fresh rows), ``delete`` /
+``delete_external``, ``compact``, ``search`` with the "expand", "beam" and
+"scored" rescore windows, and ``save`` / ``load`` in the JAX package's
+checkpoint format (version 3; versions 1-2 are migrated on load).  Search
+results are internal row ids; ``to_external`` maps them.
 
 Readers see snapshots, as in the JAX package: ``add`` and ``delete`` never
 write a tensor or host array that ``index.arrays`` or
@@ -36,7 +37,7 @@ import torch
 
 from . import store
 from .config import CHECKPOINT_MAGIC, CHECKPOINT_VERSION, DistanceType, IndexConfig, QueryParams
-from .distance import gathered_distances, preprocess_query
+from .distance import preprocess_query, row_distances
 from .graph.build import (
     BRUTE_CANDIDATE_THRESHOLD,
     BUILD_SNAPSHOT_REFRESH_WAVES,
@@ -114,19 +115,6 @@ def _expand_rescore_window(
     )
 
 
-def _exact_batch_distances(
-    vectors: torch.Tensor,  # f32[cap, D]
-    query_vecs: torch.Tensor,  # f32[Q, D]
-    ids: torch.Tensor,  # i32[Q, M] (clamped; callers mask)
-    *,
-    distance_type: DistanceType,
-) -> torch.Tensor:
-    """Full-precision distances from each query to its candidate rows
-    (the f32 tier of the rescore)."""
-    rows = store.dequant_rows(vectors, ids.clamp_min(0).long())
-    return gathered_distances(rows, query_vecs, distance_type)
-
-
 def _finalize_results(
     arrays: GraphArrays,
     query_vecs: torch.Tensor,  # f32[Q, D]
@@ -147,9 +135,8 @@ def _finalize_results(
         return ids[:, :k], d[:, :k]
     m = min(rescore_n + k, ids.shape[1])
     top_ids, top_d = ids[:, :m], d[:, :m]
-    exact = _exact_batch_distances(
-        arrays.vectors, query_vecs, top_ids, distance_type=distance_type
-    )
+    # The f32 tier of the rescore: full-precision distances to the rows.
+    exact = row_distances(arrays.vectors, query_vecs, top_ids, distance_type)
     exact = torch.where(top_ids == INVALID_ID, torch.inf, exact)
     exact = torch.where(top_d == torch.inf, torch.inf, exact)
     sd, sids = _stable_sort_by(exact, top_ids)
@@ -169,21 +156,34 @@ def _search(
     use_exact: bool,
     expand_factor: int,
     expand_window_m: int = 0,
+    window_n: int = 0,
 ):
-    """Query path: normalize, encode, beam search, expand the rescore
-    window, rescore, top-k."""
+    """Query path: normalize, encode (SBQ; plain storage's query codes
+    are [Q, 0]), beam search, the rescore window ("scored": the search's
+    window buffer, deduped; "expand": the beam widened by 1-hop
+    neighbours), rescore, top-k."""
     q = raw_queries.shape[0]
     qv = preprocess_query(raw_queries, config.distance_type)
     q_indexed = qv[:, : config.dims_to_index]
-    qc = sbq.encode(q_indexed, sbq_stats, config.bits_per_dimension)
+    if config.uses_sbq:
+        qc = sbq.encode(q_indexed, sbq_stats, config.bits_per_dimension)
+    else:
+        qc = torch.zeros((q, 0), dtype=torch.int32, device=qv.device)
     res = beam_search(
         arrays, qc, get_start_ids(arrays, q),
         search_list_size=search_list_size,
         max_iters=max_iters,
         expand_factor=expand_factor,
         track_hist=False,
+        query_vecs=q_indexed,
+        use_codes=config.uses_sbq,
+        distance_type=config.distance_type,
+        window_n=window_n,
     )
     cand_ids, cand_dists = res.beam_ids, res.beam_dists
+    if window_n > 0:
+        # The window may hold an id twice: one dedup here.
+        cand_ids, cand_dists = _dedup_candidates(res.window_ids, res.window_dists)
     if expand_window_m > 0:
         cand_ids, cand_dists = _expand_rescore_window(
             arrays, qc, cand_ids, cand_dists, expand_m=expand_window_m
@@ -196,15 +196,21 @@ def _search(
     return ids, dists, res
 
 
-def _ingest(raw: torch.Tensor, config: IndexConfig, capacity: int):
-    """Allocate the store, normalize, train the quantizer, encode."""
+def _ingest(raw: torch.Tensor, config: IndexConfig, capacity: int,
+            stats: Optional[sbq.SbqStats] = None):
+    """Allocate the store, normalize, train the quantizer (unless
+    ``stats`` is given, or the storage is plain, which keeps untrained
+    statistics and no codes), encode."""
     n = raw.shape[0]
     arrays = store.empty_arrays(config, capacity, raw.device)
     dev = preprocess_query(raw, config.distance_type)
     indexed = dev[:, : config.dims_to_index]
-    stats = sbq.train(indexed)
+    if stats is None:
+        stats = (sbq.train(indexed) if config.uses_sbq
+                 else sbq.empty_stats(config.dims_to_index, raw.device))
     arrays.vectors[:n] = dev
-    arrays.codes[:n] = sbq.encode(indexed, stats, config.bits_per_dimension)
+    if config.uses_sbq:
+        arrays.codes[:n] = sbq.encode(indexed, stats, config.bits_per_dimension)
     return arrays._replace(count=n), stats
 
 
@@ -216,9 +222,10 @@ def _add_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
     m = raw.shape[0]
     dev = preprocess_query(raw, config.distance_type)
     arrays.vectors[n0 : n0 + m] = dev
-    arrays.codes[n0 : n0 + m] = sbq.encode(
-        dev[:, : config.dims_to_index], stats, config.bits_per_dimension
-    )
+    if config.uses_sbq:
+        arrays.codes[n0 : n0 + m] = sbq.encode(
+            dev[:, : config.dims_to_index], stats, config.bits_per_dimension
+        )
     return arrays._replace(count=n0 + m)
 
 
@@ -232,9 +239,10 @@ def _reuse_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
     dev = preprocess_query(raw, config.distance_type)
     idx = rows.long()
     arrays.vectors[idx] = dev
-    arrays.codes[idx] = sbq.encode(
-        dev[:, : config.dims_to_index], stats, config.bits_per_dimension
-    )
+    if config.uses_sbq:
+        arrays.codes[idx] = sbq.encode(
+            dev[:, : config.dims_to_index], stats, config.bits_per_dimension
+        )
     arrays.deleted[idx] = False
     arrays.adjacency[idx] = INVALID_ID
     return arrays
@@ -268,6 +276,16 @@ def _migrate_checkpoint(z: dict, version: int) -> dict:
     return z
 
 
+def _stats_on(stats, device: torch.device) -> sbq.SbqStats:
+    """SBQ statistics of either package (tensors or arrays) on ``device``."""
+    def f32(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x, dtype=np.float32))
+        return x.to(device, torch.float32)
+
+    return sbq.SbqStats(int(np.asarray(stats.count)), f32(stats.mean), f32(stats.m2))
+
+
 def _as_vectors(vectors, device: torch.device) -> torch.Tensor:
     if not isinstance(vectors, torch.Tensor):
         vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float32))
@@ -296,10 +314,7 @@ class DiskannIndex:
 
     @property
     def _ctx(self) -> BuildContext:
-        """The build settings, made at the first insert: an index the port
-        searches but does not build (an SBQ index built with
-        build_distance "exact") loads and searches, and raises
-        NotImplementedError only when something inserts."""
+        """The build settings, made at the first insert."""
         if self._build_ctx is None:
             self._build_ctx = BuildContext(self.config)
         return self._build_ctx
@@ -330,14 +345,24 @@ class DiskannIndex:
         external_ids=None,
         device=None,
         progress_callback=None,
+        initial_wave: Optional[int] = None,
+        max_wave: int = MAX_WAVE,
+        sbq_stats: Optional[sbq.SbqStats] = None,
+        refine_passes: int = 0,
     ) -> "DiskannIndex":
         """Build an index over ``vectors`` [N, D] (numpy or a tensor; N may
         be 0, which leaves the index empty and its quantizer untrained).
 
         Ingest (normalize, train SBQ, encode) in one pass, then waves of
-        up to MAX_WAVE rows (a geometric ramp from INITIAL_WAVE for small
-        builds), then finalize.  ``progress_callback(phase, done, total)``
-        is called after ingest, after every wave and around finalize."""
+        up to ``max_wave`` rows, then finalize.  ``initial_wave=None``
+        picks the schedule: ``max_wave`` throughout when N >= 2 *
+        ``max_wave``, else a geometric ramp from INITIAL_WAVE.
+        ``sbq_stats`` reuses a trained quantizer (no training pass; its
+        tensors are moved to the device).  ``refine_passes`` re-inserts
+        every node against the finished graph that many times, each pass
+        followed by a finalize.  ``progress_callback(phase, done, total)``
+        is called after ingest, after every wave and around finalize (the
+        refinement passes included)."""
         dev = resolve_device(device)
         vectors = _as_vectors(vectors, dev)
         if vectors.ndim != 2:
@@ -354,25 +379,33 @@ class DiskannIndex:
             external_ids = np.asarray(external_ids, dtype=np.int64)
             if external_ids.shape != (n,):
                 raise ValueError("external_ids must be [N]")
+        if initial_wave is None:
+            initial_wave = max_wave if n >= 2 * max_wave else INITIAL_WAVE
+        if sbq_stats is not None:
+            sbq_stats = _stats_on(sbq_stats, dev)
         capacity = max(_round_up(n, 1024), 1024)
         if n == 0:
             arrays = store.empty_arrays(config, capacity, dev)
-            stats = sbq.empty_stats(config.dims_to_index, dev)
+            stats = (sbq_stats if sbq_stats is not None
+                     else sbq.empty_stats(config.dims_to_index, dev))
             return cls(config, arrays, stats, external_ids)
         with _full_f32():
-            arrays, stats = _ingest(vectors, config, capacity)
+            arrays, stats = _ingest(vectors, config, capacity, sbq_stats)
             del vectors
             index = cls(config, arrays, stats, external_ids)
             if progress_callback:
                 progress_callback("training quantizer", n, n)
             arrays = index._insert_ids_into_graph(
                 arrays, np.arange(n, dtype=np.int32),
-                initial_wave=MAX_WAVE if n >= 2 * MAX_WAVE else INITIAL_WAVE,
+                initial_wave=initial_wave, max_wave=max_wave,
                 progress_callback=progress_callback,
             )
             if progress_callback:
                 progress_callback("finalizing graph", 0, n)
-            index.arrays = finalize(arrays, index._ctx)
+            arrays = finalize(arrays, index._ctx)
+            for _ in range(refine_passes):
+                arrays = finalize(index._refine_pass(arrays), index._ctx)
+            index.arrays = arrays
             if progress_callback:
                 progress_callback("finalizing graph", n, n)
         return index
@@ -383,18 +416,20 @@ class DiskannIndex:
         ids: np.ndarray,  # i32 ids of stored rows
         *,
         initial_wave: int = INITIAL_WAVE,
+        max_wave: int = MAX_WAVE,
         full_graph: bool = False,
         progress_callback=None,
     ) -> GraphArrays:
         """``arrays`` with stored rows inserted into the graph in waves of
-        doubling size, from ``initial_wave`` up to MAX_WAVE.  Into an empty
-        graph the first id becomes the default start node.  Publishes
-        nothing.
+        doubling size, from ``initial_wave`` up to ``max_wave``.  Into an
+        empty graph the first id becomes the default start node.
+        Publishes nothing.
 
         ``full_graph``: the ids are scattered through the id space
         (tombstone reuse), so every row below ``count`` is a candidate,
         instead of the rows below each wave's first id."""
         ctx = self._ctx
+        use_snap = self.config.build_traversal_uses_codes
         dev = arrays.device
         pos = 0
         if arrays.default_start == INVALID_ID and len(ids) > 0:
@@ -412,13 +447,14 @@ class DiskannIndex:
             wave = torch.full((bucket,), INVALID_ID, dtype=torch.int32, device=dev)
             wave[:take] = remaining_dev[done : done + take]
             prefix_est = arrays.count if full_graph else first
-            if prefix_est > BRUTE_CANDIDATE_THRESHOLD and (
+            if use_snap and prefix_est > BRUTE_CANDIDATE_THRESHOLD and (
                 snap_adj is None or waves_since_snap >= BUILD_SNAPSHOT_REFRESH_WAVES
             ):
-                # Traversal reads a snapshot of the adjacency; waves write
-                # the live rows.  It reads the live codes: codes are written
-                # only at ingest, before any wave, so they equal the codes
-                # of every snapshot.
+                # Traversal on codes reads a snapshot of the adjacency;
+                # waves write the live rows.  It reads the live codes: codes
+                # are written only at ingest, before any wave, so they equal
+                # the codes of every snapshot.  Full-precision traversal
+                # reads the live adjacency.
                 snap_adj = arrays.adjacency.clone()
                 waves_since_snap = 0
             if full_graph:
@@ -433,9 +469,40 @@ class DiskannIndex:
                 )
             waves_since_snap += 1
             done += take
-            bucket = min(bucket * 2, MAX_WAVE)
+            bucket = min(bucket * 2, max_wave)
             if progress_callback:
                 progress_callback("inserting tuples", done + pos, len(ids))
+        return arrays
+
+    def _refine_pass(self, arrays: GraphArrays) -> GraphArrays:
+        """One refinement sweep over ``arrays``: every node, in waves of
+        MAX_WAVE ids, beam-searches the current graph and re-prunes with
+        its current neighbours in contention.  Traversal on codes reads a
+        snapshot taken at the first wave and refreshed every
+        BUILD_SNAPSHOT_REFRESH_WAVES waves, whatever the row count.  The
+        JAX package pads the last wave to MAX_WAVE ids to keep one
+        compiled shape; padded rows write nothing and change no other
+        row's result, so the port, which compiles nothing, does not pad.
+        Publishes nothing."""
+        ctx = self._ctx
+        use_snap = self.config.build_traversal_uses_codes
+        n = arrays.count
+        dev = arrays.device
+        snap_adj = None
+        waves_since_snap = 0
+        for off in range(0, n, MAX_WAVE):
+            take = min(MAX_WAVE, n - off)
+            ids = torch.arange(off, off + take, dtype=torch.int32, device=dev)
+            if use_snap and (
+                snap_adj is None or waves_since_snap >= BUILD_SNAPSHOT_REFRESH_WAVES
+            ):
+                snap_adj = arrays.adjacency.clone()
+                waves_since_snap = 0
+            arrays = insert_wave(
+                arrays, ctx, ids, n_real=take, include_existing=True,
+                snap_adjacency=snap_adj,
+            )
+            waves_since_snap += 1
         return arrays
 
     def add(self, vectors, *, external_ids=None) -> np.ndarray:
@@ -640,8 +707,14 @@ class DiskannIndex:
         return cls(config, arrays, stats, z["external_ids"])
 
     def _needs_rescore(self, params: QueryParams) -> bool:
-        """SBQ rescoring runs whenever rescore > 0."""
-        return params.rescore > 0
+        """SBQ rescores whenever rescore > 0; plain storage only when the
+        index truncates the dimensions (its traversal distances are exact
+        otherwise)."""
+        if params.rescore == 0:
+            return False
+        if self.config.uses_sbq:
+            return True
+        return self.config.dims_to_index < self.config.num_dimensions
 
     def search(
         self,
@@ -661,8 +734,6 @@ class DiskannIndex:
             raise ValueError(f"the index lives on {self.device}, not {dev}")
         arrays = self.arrays  # one snapshot for the whole search
         params = params or QueryParams()
-        if params.window_strategy != "expand":
-            raise NotImplementedError("the port serves window_strategy='expand'")
         config = self.config
         if isinstance(queries, torch.Tensor):
             queries = queries.to(self.device, torch.float32)
@@ -677,15 +748,26 @@ class DiskannIndex:
             )
         l = max(params.search_list_size, k)
         use_exact = self._needs_rescore(params)
+        # A rescore window wider than the beam: "expand" (SBQ) caps the beam
+        # near 2L and widens the candidates with the top beam nodes' 1-hop
+        # neighbours; "scored" caps the beam the same way and keeps the
+        # best `window` scored candidates of the search; otherwise ("beam",
+        # and plain storage's "expand") the beam itself widens.  The visit
+        # budget stays keyed to L.
         window = params.rescore + k if use_exact else 0
         expand_window_m = 0
+        window_n = 0
         beam_width = max(l, window)
-        if window > 2 * l + 16:
+        if (config.uses_sbq and params.window_strategy == "expand"
+                and window > 2 * l + 16):
             beam_width = 2 * l + 16
             r = arrays.max_degree
             expand_window_m = min(
                 beam_width, max(4, -(-2 * (window - beam_width) // r))
             )
+        elif params.window_strategy == "scored" and window > l:
+            beam_width = min(2 * l + 16, window)
+            window_n = window
         with _full_f32():
             ids, dists, res = _search(
                 arrays, self.sbq_stats, queries,
@@ -696,6 +778,7 @@ class DiskannIndex:
                 rescore_n=params.rescore, use_exact=use_exact,
                 expand_factor=min(params.expand, l),
                 expand_window_m=expand_window_m,
+                window_n=window_n,
             )
         self.last_search = res
         return ids, dists
@@ -711,9 +794,4 @@ def from_jax_state(host_arrays, sbq_stats, config, *, external_ids=None,
     if not isinstance(config, IndexConfig):
         config = IndexConfig.from_dict(config.to_dict())
     arrays = store.from_host(host_arrays, dev)
-    stats = sbq.SbqStats(
-        count=int(np.asarray(sbq_stats.count)),
-        mean=torch.tensor(np.asarray(sbq_stats.mean), dtype=torch.float32, device=dev),
-        m2=torch.tensor(np.asarray(sbq_stats.m2), dtype=torch.float32, device=dev),
-    )
-    return DiskannIndex(config, arrays, stats, external_ids)
+    return DiskannIndex(config, arrays, _stats_on(sbq_stats, dev), external_ids)

@@ -204,7 +204,7 @@ def test_build_defaults_to_the_card(monkeypatch):
 
 def test_build_rejects_what_the_port_does_not_build():
     v = np.ones((10, 8), np.float32)
-    for cfg in (IndexConfig(num_dimensions=8, build_distance="exact"),
-                IndexConfig(num_dimensions=8, max_labels_per_vector=2)):
+    for cfg in (IndexConfig(num_dimensions=8, max_labels_per_vector=2),
+                IndexConfig(num_dimensions=8, vector_dtype="bf16")):
         with pytest.raises(NotImplementedError):
             DiskannIndex.build(v, cfg, device="cpu")

@@ -169,11 +169,12 @@ def test_edge_gather_kernel_matches_plain_on_card(cuda_device, q, e, r, w):
 @pytest.mark.cuda
 def test_build_and_beam_search_on_card_match_cpu(cuda_device):
     """A small index built on the card passes the invariants, and the
-    card's beam search over it (kernel) equals the CPU's (plain version)
-    exactly: Hamming distances are integers."""
+    card's beam search over it (kernel), with a "scored" window of 200,
+    equals the CPU's (plain version) exactly: Hamming distances are
+    integers.  A "scored" search on the card returns no id twice."""
     import numpy as np
 
-    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
     from pgvectorscale_tpu_torch.graph.build import reachable_on_device
     from pgvectorscale_tpu_torch.graph.search import beam_search, get_start_ids
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
@@ -185,6 +186,12 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
     assert int((index.arrays.adjacency != -1).sum(1).max()) <= index.arrays.max_degree
     ids, dists = index.search(queries, 10)
     assert ids.shape == (64, 10) and bool(torch.isfinite(dists).all())
+    before = edge_gather.launches
+    ids, dists = index.search(queries, 40, QueryParams(search_list_size=32, rescore=200,
+                                                       window_strategy="scored"))
+    assert edge_gather.launches > before
+    assert ids.shape == (64, 40) and bool(torch.isfinite(dists).all())
+    assert all(len(set(row.tolist())) == 40 for row in ids.cpu())
     codes = index.arrays.codes[torch.arange(64, device=cuda_device) * 7]
     results = []
     for dev in (cuda_device, torch.device("cpu")):
@@ -193,8 +200,10 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
             vectors=index.arrays.vectors.to(dev), deleted=index.arrays.deleted.to(dev),
         )
         res = beam_search(arrays, codes.to(dev), get_start_ids(arrays, 64),
-                          search_list_size=64, max_iters=112, expand_factor=4)
-        results.append([t.cpu() for t in (res.beam_ids, res.beam_dists, res.hist_ids)])
+                          search_list_size=64, max_iters=112, expand_factor=4,
+                          window_n=200)
+        results.append([t.cpu() for t in (res.beam_ids, res.beam_dists, res.hist_ids,
+                                          res.window_ids, res.window_dists)])
     for a, b in zip(*results):
         assert torch.equal(a, b)
     assert np.isfinite(results[0][1].numpy()).any()
@@ -233,3 +242,47 @@ def test_storage_build_and_add_on_card(cuda_device):
     assert bool(reachable_on_device(card.arrays)[:n].all())
     assert torch.equal(card.arrays.codes.cpu(), cpu.arrays.codes)
     assert torch.equal(card.arrays.adjacency.cpu(), cpu.arrays.adjacency)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "plain"])
+def test_full_precision_build_and_add_on_card_match_cpu(cuda_device, mode, monkeypatch):
+    """An SBQ build with build_distance "exact" and a plain build (L2,
+    3,000 x 32 vectors of integers in -3..3, so every distance is an
+    integer in any summation order) with ``refine_passes=1``, then an add
+    of 1,000 rows: the card
+    gives the CPU's graph exactly, launches no kernel in the build or the
+    add (full-precision traversal), and the "exact" index's search
+    launches edge_gather.  The brute-force threshold is lowered to 256 rows
+    so the build and the add reach full-precision beam waves."""
+    import numpy as np
+
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch import index as index_mod
+    from pgvectorscale_tpu_torch.config import DistanceType, StorageLayout
+    from pgvectorscale_tpu_torch.graph import build
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+
+    for mod in (build, index_mod):
+        monkeypatch.setattr(mod, "BRUTE_CANDIDATE_THRESHOLD", 256)
+    base = np.random.default_rng(3).integers(-3, 4, (4000, 32)).astype(np.float32)
+    kw = dict(storage_layout=StorageLayout.PLAIN) if mode == "plain" else dict(
+        build_distance="exact")
+    config = IndexConfig(num_dimensions=32, distance_type=DistanceType.L2,
+                         num_neighbors=16, search_list_size=32, **kw)
+    graphs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        before = (edge_gather.launches, hamming_matrix.launches)
+        index = DiskannIndex.build(base[:3000], config, device=dev, refine_passes=1)
+        index.add(base[3000:])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (edge_gather.launches, hamming_matrix.launches) == before
+            n = index.count
+            assert bool(reachable_on_device(index.arrays)[:n].all())
+            ids, dists = index.search(base[:64], 10, QueryParams(search_list_size=32,
+                                                                 rescore=50))
+            assert ids[:, 0].tolist() == list(range(64))
+            assert (edge_gather.launches > before[0]) == (mode == "exact")
+        graphs.append(index.arrays.adjacency.cpu())
+    assert torch.equal(graphs[0], graphs[1])

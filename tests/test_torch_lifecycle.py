@@ -249,8 +249,7 @@ def test_load_defaults_to_the_card(monkeypatch):
 @pytest.fixture(scope="module")
 def exact_built(tmp_path_factory):
     """A JAX-built 64 x 16 SBQ index with build_distance "exact" (full
-    precision traversal, which the port does not build), its queries and
-    its checkpoint."""
+    precision traversal), its queries and its checkpoint."""
     base, queries = synthetic_corpus("glove", 64, 12, seed=31)
     base, queries = base[:, :16].copy(), queries[:, :16].copy()
     jidx = JaxIndex.build(base, JaxConfig(num_dimensions=16, build_distance="exact"))
@@ -265,8 +264,11 @@ def test_exact_built_index_searches_like_jax(exact_built, via):
     save) an SBQ index built with build_distance "exact" and searches it
     as JAX does: at rescore 0 the distances are Hamming integers and equal
     exactly; at rescore 20 the ids are equal and the distances within 1e-5
-    (float32 dot products summed in two orders).  ``add`` then raises
-    NotImplementedError and leaves the index as it was."""
+    (float32 dot products summed in two orders).  ``add`` then inserts
+    with full-precision traversal, as JAX's does (same ids, every row
+    reachable; exact parity on integer vectors is in
+    ``test_torch_plain.py``), and leaves the arrays it replaced as they
+    were."""
     jidx, queries, path = exact_built
     if via == "load":
         pidx = DiskannIndex.load(path, device="cpu")
@@ -284,6 +286,9 @@ def test_exact_built_index_searches_like_jax(exact_built, via):
         else:
             np.testing.assert_allclose(d.numpy(), j_d, atol=1e-5, rtol=0)
     arrays = pidx.arrays
-    with pytest.raises(NotImplementedError):
-        pidx.add(queries[:4])
-    assert pidx.arrays is arrays and pidx.count == 64
+    adjacency = arrays.adjacency.clone()
+    want = JaxIndex.load(path).add(queries[:4])  # a copy: the fixture stays as built
+    np.testing.assert_array_equal(pidx.add(queries[:4]), want)
+    assert pidx.arrays is not arrays and pidx.count == 68 and arrays.count == 64
+    assert torch.equal(arrays.adjacency, adjacency)
+    assert bool(build.reachable_on_device(pidx.arrays)[:68].all())
