@@ -66,8 +66,29 @@ Phases, each reported on a timestamped, flushed line:
    distances are exact), recall against ``ExactIndex``; no kernel
    launches on this path.  Then, outside the path, the device time of
    full-precision traversal's gather-dot at a build and a search step.
+11. filtered: the JAX suite's filtered deployment (benchmarks/suite.py
+   ``run_filtered``: 100 labels with popularity 1/rank, 1-2 a row, bf16
+   vectors, 2 bits/dim) on the corpus, built exact-prune (R=50, L=100):
+   the graph checks, every label's start node on a row with its label;
+   1,024 one-label and 1,024 two-label queries at L=100, rescore 300,
+   E=4 and at the suite's first point, L=150, rescore 300, E=2 (recall@10
+   against a filtered exact top-10 computed on the card, floor 0.50 at
+   the suite's point; QPS best of 3; every result carries a query label,
+   no id twice; edge_gather launched in the build and every search); 64
+   queries on each of the 5 rarest labels get 10 ids carrying it, and
+   each label's reach (its rows a filtered search can reach from its
+   start nodes, a host BFS) stays at or above its measured floor; label
+   98, whose rows label-aware pruning leaves unlinked (in the JAX package
+   as in the port), gets min(10, reach) ids; the filtered beam search on
+   the card equals the CPU's plain path for 32 one-label and 32
+   two-label queries.
+12. filtered life cycle: phase 7 on a labeled bf16 storage index (labeled
+   adds, the first one's seed wave through the Hamming matrix; a reuse
+   add with new labels leaves no label start entry on a row without its
+   label; a filtered search returns no deleted row and holds every
+   filter; save/load bit-equal; compact keeps labels and external ids).
 
-Each path (phases 3-4, 5b, 6, 7, 8, 9 and 10) is driven with the
+Each path (phases 3-4, 5b, 6, 7, 8, 9, 10, 11 and 12) is driven with the
 kernels' launch counts set to 0 just before it and read just after; the
 kernels line sums them.  The peak device memory
 (``torch.cuda.max_memory_allocated``) is reset at the start of each
@@ -96,22 +117,26 @@ BUDGET_S = 600
 # Seconds since start by which each phase must have ended.
 DEADLINES = {
     "device": 60,
-    "kernel build": 200,
-    "kernel vs plain": 250,
-    "build": 290,
-    "search": 305,
-    "agreement": 315,
-    "windows": 345,
-    "storage build": 380,
-    "storage search": 390,
-    "life cycle": 450,
-    "refine build": 500,
-    "refine search": 510,
-    "exact build": 545,
-    "exact search": 555,
-    "exact add": 565,
-    "plain build": 585,
-    "plain search": 595,
+    "kernel build": 180,
+    "kernel vs plain": 220,
+    "build": 250,
+    "search": 260,
+    "agreement": 270,
+    "windows": 290,
+    "storage build": 315,
+    "storage search": 325,
+    "life cycle": 355,
+    "refine build": 385,
+    "refine search": 395,
+    "exact build": 415,
+    "exact search": 425,
+    "exact add": 435,
+    "plain build": 455,
+    "plain search": 465,
+    "filtered build": 520,
+    "filtered search": 545,
+    "filtered agreement": 555,
+    "filtered life cycle": 595,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
@@ -145,6 +170,23 @@ EXACT_ADD = 4096
 # Window phase: (L, rescore, E) points; the wide one is bench.py's.
 WINDOW_POINTS = ((100, 300, 4), (200, 1500, 2))
 WINDOW_STRATEGIES = ("expand", "beam", "scored")
+# Phase 11, the JAX suite's filtered deployment (benchmarks/suite.py
+# run_filtered): label count and the seed of the label draws; search points
+# (L, rescore, E), phase 4's and then the suite's first.
+FILTER_LABELS, FILTER_SEED = 100, 7
+FILTER_POINTS = ((100, 300, 4), (150, 300, 2))
+# Floor of filtered recall@10 at the suite's point, for each query set: it
+# catches a broken filter or start lookup, not a weak graph.
+MIN_FILTERED_RECALL = 0.50
+# The labels that the fewest rows carry, and the queries filtered on each:
+# each query must get 10 rows carrying its label.  Reach (label_reach) is
+# the label's rows that a filtered search can reach from its start nodes;
+# each rare label's reach must stay at or above its floor, the value
+# measured on an H100 for this seed.  Label 98 has reach 1 (label-aware
+# pruning leaves its rows unlinked from its start node, in the JAX package
+# as in the port), so its queries must get min(10, reach) rows.
+RARE_LABELS, RARE_QUERIES = 5, 64
+RARE_REACH_FLOOR = {96: 209, 99: 271, 95: 269, 94: 277, 98: 1}
 KERNELS = ("edge_gather", "hamming_matrix")
 
 
@@ -471,19 +513,21 @@ def check_graph(index, label: str) -> str:
             f"(r_max {r_max}), mean {float(deg.float().mean()):.2f}")
 
 
-def phase_build(vectors, phase: str, counts=None, refine_passes: int = 0, **config_kw):
-    """``DiskannIndex.build`` of ``vectors`` with ``IndexConfig(DIM,
-    **config_kw)``; seconds split at the progress marks (the finalize
-    share includes the refinement passes), the graph checks, and, with
-    ``counts``, the kernels' launches between the end of the waves and the
-    end of the build."""
+def phase_build(vectors, phase: str, counts=None, refine_passes: int = 0, labels=None,
+                **config_kw):
+    """``DiskannIndex.build`` of ``vectors`` (and their ``labels``) with
+    ``IndexConfig(DIM, **config_kw)``; seconds split at the progress marks
+    (the finalize share includes the refinement passes), the graph checks,
+    and, with ``counts``, the kernels' launches between the end of the
+    waves and the end of the build."""
     import torch
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
 
     config = IndexConfig(num_dimensions=DIM, **config_kw)
     label = ("plain" if not config.uses_sbq else config.build_distance) + (
-        f", refine_passes={refine_passes}" if refine_passes else "")
+        f", refine_passes={refine_passes}" if refine_passes else "") + (
+        f", labeled, {config.vector_dtype}" if labels is not None else "")
     marks = {}
 
     def progress(stage, done, total):
@@ -505,7 +549,7 @@ def phase_build(vectors, phase: str, counts=None, refine_passes: int = 0, **conf
 
     t = elapsed()
     index = DiskannIndex.build(vectors, config, progress_callback=progress,
-                               refine_passes=refine_passes)
+                               refine_passes=refine_passes, labels=labels)
     torch.cuda.synchronize()
     fin = "finalize_refine_s" if refine_passes else "finalize_s"
     times = {
@@ -539,7 +583,7 @@ def ground_truth(vectors, queries, config):
     return gt
 
 
-def timed_search(index, qdev, params):
+def timed_search(index, qdev, params, query_labels=None):
     """Three runs of one top-10 search; (ids, dists, host seconds of each)."""
     import torch
 
@@ -547,7 +591,7 @@ def timed_search(index, qdev, params):
     for _ in range(3):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        ids, dists = index.search(qdev, 10, params)
+        ids, dists = index.search(qdev, 10, params, query_labels=query_labels)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
     return ids, dists, secs
@@ -822,37 +866,363 @@ def phase_life_cycle(vectors, queries) -> dict:
     return out
 
 
-def phase_agreement(index, queries) -> None:
+def phase_agreement(index, queries, query_labels=None, phase: str = "agreement") -> None:
+    """The beam search on the card equals the same search by the plain
+    versions on the CPU for 64 queries; with ``query_labels``, the
+    filtered search from the default and label start nodes."""
     import torch
 
     from pgvectorscale_tpu_torch.distance import preprocess_query
     from pgvectorscale_tpu_torch.graph.search import beam_search, get_start_ids
+    from pgvectorscale_tpu_torch.labels import make_label_array
     from pgvectorscale_tpu_torch.ops import sbq
 
     cfg = index.config
     q = torch.as_tensor(queries[:64])
     outs = []
     for dev in ("cuda", "cpu"):
-        arrays = index.arrays._replace(
-            vectors=index.arrays.vectors.to(dev), codes=index.arrays.codes.to(dev),
-            adjacency=index.arrays.adjacency.to(dev), deleted=index.arrays.deleted.to(dev),
-        )
+        arrays = index.arrays._replace(**{
+            f: v.to(dev) for f, v in zip(index.arrays._fields, index.arrays)
+            if isinstance(v, torch.Tensor)})
         stats = sbq.SbqStats(index.sbq_stats.count, index.sbq_stats.mean.to(dev),
                              index.sbq_stats.m2.to(dev))
         qv = preprocess_query(q.to(dev), cfg.distance_type)
         qc = sbq.encode(qv, stats, cfg.bits_per_dimension)
+        ql = None
+        if query_labels is not None:
+            ql = torch.from_numpy(make_label_array(query_labels[:64], 2)).to(dev)
         res = beam_search(
-            arrays, qc, get_start_ids(arrays, qv.shape[0]),
+            arrays, qc, get_start_ids(arrays, qv.shape[0], ql),
             search_list_size=100, max_iters=166, expand_factor=4,
+            query_labels=ql,
         )
         outs.append((qc.cpu(), res.beam_ids.cpu(), res.beam_dists.cpu(),
                      res.hist_ids.cpu()))
     same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
-    say(f"phase 5 agreement: beam search on the card vs the CPU's plain path "
-        f"for 64 queries: {'equal' if same else 'DIFFERENT'}")
+    kind = "filtered beam search" if query_labels is not None else "beam search"
+    say(f"{'phase 11' if query_labels is not None else 'phase 5'} {phase}: {kind} on "
+        f"the card vs the CPU's plain path for 64 queries: "
+        f"{'equal' if same else 'DIFFERENT'}")
     if not same:
-        fail("the card's beam search differs from the CPU's")
-    check_deadline("agreement")
+        fail(f"the card's {kind} differs from the CPU's")
+    check_deadline(phase)
+
+
+def suite_labels(n: int, rng):
+    """benchmarks/suite.py ``run_filtered``'s label draw: two labels a row
+    with popularity 1/rank, kept as 1 or 2 distinct labels.  Returns the
+    label lists, the same as an int32 [n, 2] array (-1 padded) and the
+    popularity."""
+    import numpy as np
+
+    pop = 1.0 / np.arange(1, FILTER_LABELS + 1)
+    pop /= pop.sum()
+    l1 = rng.choice(FILTER_LABELS, size=n, p=pop)
+    l2 = rng.choice(FILTER_LABELS, size=n, p=pop)
+    arr = np.stack([l1, np.where(l1 == l2, -1, l2)], axis=1).astype(np.int32)
+    lists = [[int(a)] if b < 0 else [int(a), int(b)] for a, b in arr]
+    return lists, arr, pop
+
+
+def label_rows(qlabels, width: int = 2):
+    """Query label lists -> int32 [Q, width] on the card, padded with -2
+    (no row label and no row padding equals it)."""
+    import numpy as np
+    import torch
+
+    out = np.full((len(qlabels), width), -2, np.int32)
+    for i, ls in enumerate(qlabels):
+        out[i, : len(ls)] = ls
+    return torch.from_numpy(out).cuda()
+
+
+def filtered_ground_truth(vectors, queries, row_labels, qlabels):
+    """Filtered exact top-10 ids on the card: cosine over the float32
+    normalized corpus with every row that carries none of the query's
+    labels masked out, as benchmarks/suite.py computes it (the checker's
+    own code, not the port's)."""
+    import torch
+
+    vn = torch.nn.functional.normalize(torch.as_tensor(vectors).cuda(), dim=1)
+    qn = torch.nn.functional.normalize(torch.as_tensor(queries).cuda(), dim=1)
+    rows = torch.as_tensor(row_labels).cuda()
+    ql = label_rows(qlabels)
+    out = []
+    for i in range(0, qn.shape[0], 128):
+        allowed = (rows[None, :, :, None] == ql[i : i + 128, None, None, :]).any(-1).any(-1)
+        d = torch.where(allowed, 1.0 - qn[i : i + 128] @ vn.T, torch.inf)
+        out.append(torch.topk(d, 10, dim=1, largest=False).indices)
+    return torch.cat(out).to(torch.int32)
+
+
+def check_filtered(ids, dists, ql, row_labels, name: str) -> None:
+    """Every returned id carries one of its query's labels (``ql`` [Q, Lq]
+    against ``row_labels`` [rows, Lm] on the card, paddings that match
+    nothing), its distance is finite, and no id appears twice in a row."""
+    import torch
+
+    valid = ids >= 0
+    got = row_labels[ids.clamp_min(0).long()]  # [Q, 10, Lm]
+    ok = (got[:, :, :, None] == ql[:, None, None, :]).any(-1).any(-1)
+    if bool((valid & ~ok).any()):
+        fail(f"{name}: a returned row carries none of its query's labels")
+    if bool((valid & ~torch.isfinite(dists)).any()):
+        fail(f"{name}: a returned row has no finite distance")
+    col = torch.arange(ids.shape[1], device=ids.device)
+    s_ids = torch.sort(torch.where(valid, ids, -1 - col), dim=1).values
+    if bool((s_ids[:, 1:] == s_ids[:, :-1]).any()):
+        fail(f"{name}: an id appears twice in a row")
+
+
+def check_label_starts(index, name: str) -> int:
+    """Every label start entry points at a row that carries the label;
+    returns the number of entries."""
+    import torch
+
+    from pgvectorscale_tpu_torch.labels import LABEL_SENTINEL
+
+    keys = index.arrays.label_start_keys
+    real = keys != LABEL_SENTINEL
+    rows = index.arrays.node_labels[index.arrays.label_start_ids[real].long()]
+    if not bool((rows == keys[real][:, None]).any(dim=1).all()):
+        fail(f"{name}: a label start entry points at a row without the label")
+    return int(real.sum())
+
+
+def label_reach(index, label: int) -> int:
+    """Rows carrying ``label`` that a search filtered on it can reach:
+    from the default start and the label's start node, through edges into
+    rows that carry the label (a breadth-first search on the host over the
+    built graph, the checker's own code).  A filtered search with a beam
+    wider than k returns min(k, reach) rows."""
+    import numpy as np
+
+    n = index.count
+    adj = index.arrays.adjacency[:n].cpu().numpy()
+    has = (index.arrays.node_labels[:n] == label).any(dim=1).cpu().numpy()
+    keys = index.arrays.label_start_keys.cpu().numpy()
+    starts = [index.arrays.default_start] + [
+        int(i) for i in index.arrays.label_start_ids.cpu().numpy()[keys == label]]
+    seen = np.zeros(n, bool)
+    seen[starts] = True
+    front = np.asarray(starts)
+    while len(front):
+        nb = adj[front].reshape(-1)
+        nb = nb[nb >= 0]
+        nb = np.unique(nb[has[nb] & ~seen[nb]])
+        seen[nb] = True
+        front = nb
+    return int((seen & has).sum())
+
+
+def phase_filtered(vectors, queries, counts) -> dict:
+    """Phase 11: the JAX suite's filtered deployment at 100k rows (labels
+    from benchmarks/suite.py ``run_filtered``, bf16 vectors, 2 bits/dim,
+    exact-prune, R=50, L=100): the build and its checks, both query sets
+    at each FILTER_POINTS with recall against the filtered exact top-10,
+    the rare-label check and the filtered agreement."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch.ops import edge_gather
+
+    rng = np.random.default_rng(FILTER_SEED)
+    labels, row_labels, pop = suite_labels(N, rng)
+    qsets = {m: [sorted(rng.choice(FILTER_LABELS, size=m, replace=False, p=pop).tolist())
+                 for _ in range(NQ)] for m in (1, 2)}
+    out = {}
+    start = counts()
+    torch.cuda.reset_peak_memory_stats()
+    index, out["build_s"] = phase_build(
+        vectors, "filtered build", labels=labels, build_distance="exact-prune",
+        vector_dtype="bf16", max_labels_per_vector=2)
+    out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    after = counts()
+    out["build_launches"] = {k: after[k] - start[k] for k in start}
+    if out["build_launches"]["edge_gather"] == 0:
+        fail("the filtered build did not launch edge_gather")
+    n_starts = check_label_starts(index, "filtered build")
+    if n_starts != len(np.unique(row_labels[row_labels >= 0])):
+        fail(f"filtered build: {n_starts} label start entries for "
+             f"{len(np.unique(row_labels[row_labels >= 0]))} labels")
+    say(f"  filtered build: launches {out['build_launches']}, peak device memory "
+        f"{out['build_peak_bytes']} B, {n_starts} label start nodes, each on a row with "
+        f"its label")
+    check_deadline("filtered build")
+
+    rows_t = torch.as_tensor(row_labels).cuda()
+    gts = {m: filtered_ground_truth(vectors, queries, row_labels, qsets[m]) for m in qsets}
+    qdev = torch.as_tensor(queries).cuda()
+    out["search"] = {}
+    for l, rescore, e in FILTER_POINTS:
+        for m, ql in qsets.items():
+            params = QueryParams(search_list_size=l, rescore=rescore, expand=e)
+            before = edge_gather.launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ids, dists, secs = timed_search(index, qdev, params, query_labels=ql)
+            peak = torch.cuda.max_memory_allocated()
+            launches = edge_gather.launches - before
+            name = f"{m}-label L={l} rescore={rescore} E={e}"
+            if launches == 0:
+                fail(f"filtered search {name} did not launch edge_gather")
+            check_filtered(ids, dists, label_rows(ql), rows_t, name)
+            recall = recall_at_10(ids, gts[m])
+            out["search"][name] = dict(
+                recall=recall, qps=NQ / min(secs), seconds=secs, peak_bytes=peak,
+                edge_gather_launches_3_runs=launches, iters=index.last_search.iters,
+                missing=int((ids < 0).sum()))
+            say(f"  filtered {name}: recall@10 {recall:.4f}, QPS {NQ / min(secs):.1f} "
+                f"(best of {[round(t, 4) for t in secs]} s), {index.last_search.iters} beam "
+                f"iterations, edge_gather launches {launches} in 3 runs, peak device "
+                f"memory {peak} B, {int((ids < 0).sum())} missing results")
+            if (l, rescore, e) == FILTER_POINTS[-1] and recall < MIN_FILTERED_RECALL:
+                fail(f"filtered search {name}: recall@10 {recall:.4f} is below "
+                     f"{MIN_FILTERED_RECALL}")
+            check_deadline("filtered search")
+    del gts
+
+    per_label = np.bincount(row_labels[row_labels >= 0], minlength=FILTER_LABELS)
+    rare = np.argsort(per_label, kind="stable")[:RARE_LABELS]
+    rare_ql = [[int(lab)] for lab in rare for _ in range(RARE_QUERIES)]
+    ids, dists = index.search(qdev[:RARE_QUERIES].repeat(RARE_LABELS, 1), 10,
+                              QueryParams(search_list_size=100, rescore=300),
+                              query_labels=rare_ql)
+    check_filtered(ids, dists, label_rows(rare_ql), rows_t, "rare labels")
+    found = (ids >= 0).sum(dim=1).view(RARE_LABELS, RARE_QUERIES).cpu().numpy()
+    if sorted(int(lab) for lab in rare) != sorted(RARE_REACH_FLOOR):
+        fail(f"the {RARE_LABELS} rarest labels are {sorted(rare.tolist())}, not "
+             f"{sorted(RARE_REACH_FLOOR)}: the label draw changed")
+    out["rare_labels"] = {}
+    for lab, got in zip(rare, found):
+        reach, floor = label_reach(index, int(lab)), RARE_REACH_FLOOR[int(lab)]
+        want = 10 if floor >= 10 else min(10, reach)
+        out["rare_labels"][int(lab)] = dict(rows=int(per_label[lab]), reach=reach,
+                                            found_min=int(got.min()), found_max=int(got.max()))
+        if reach < floor:
+            fail(f"rare label {lab}: {reach} of its rows are reachable from its start "
+                 f"nodes, fewer than the measured {floor}")
+        if not (got == want).all():
+            fail(f"rare label {lab}: queries found {sorted(set(got.tolist()))} rows, "
+                 f"not {want}")
+    say(f"  filtered: the {RARE_LABELS} rarest labels, {RARE_QUERIES} queries each: every "
+        f"query got 10 ids (min(10, reach) on label 98), all carrying the label, and "
+        f"every reach at or above its floor {RARE_REACH_FLOOR} (label: rows, reach from "
+        f"the default and the label's start node, found) {out['rare_labels']}")
+    check_deadline("filtered search")
+    # The path ends here; the agreement's launches compare the card with
+    # the plain versions and are not the path's.
+    out["launches"] = counts()
+    phase_agreement(index, queries, qsets[1][:32] + qsets[2][32:64],
+                    phase="filtered agreement")
+    return out
+
+
+def phase_filtered_life_cycle(vectors, queries) -> dict:
+    """Phase 12: the life cycle of phase 7 on a labeled bf16 storage index:
+    labeled build and adds (hamming_matrix in the first add's seed wave),
+    delete, a reuse add with freshly drawn labels (no label start entry
+    left on a row without its label), a filtered search (no deleted row,
+    every result on its filter), save/load (bit-equal search) and compact
+    (each live row's labels and external id kept); graph checks after
+    every step."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch.ops import hamming_matrix
+
+    phase = "filtered life cycle"
+    config = IndexConfig(num_dimensions=DIM, build_distance="storage", vector_dtype="bf16",
+                         max_labels_per_vector=2)
+    rng = np.random.default_rng(FILTER_SEED + 1)
+    labels, _, pop = suite_labels(LC_BUILD + LC_BATCHES * LC_BATCH, rng)
+    out = {}
+    t = elapsed()
+    index = DiskannIndex.build(vectors[:LC_BUILD], config, labels=labels[:LC_BUILD])
+    out["build_s"] = elapsed() - t
+    check_graph(index, phase)
+    pos = LC_BUILD
+    t = elapsed()
+    for b in range(LC_BATCHES):
+        before = hamming_matrix.launches
+        ids = index.add(vectors[pos : pos + LC_BATCH], labels=labels[pos : pos + LC_BATCH])
+        torch.cuda.synchronize()
+        if b == 0:
+            out["first_add_hamming_matrix_launches"] = hamming_matrix.launches - before
+            if hamming_matrix.launches == before:
+                fail(f"{phase}: the first add's seed wave did not launch hamming_matrix")
+        if not np.array_equal(ids, np.arange(pos, pos + LC_BATCH)):
+            fail(f"{phase}: add batch {b} returned unexpected ids")
+        pos += LC_BATCH
+        check_graph(index, phase)
+        check_deadline(phase)
+    out["adds_s"] = elapsed() - t
+    say(f"  {phase}: built {LC_BUILD} labeled rows in {out['build_s']:.2f}s, added "
+        f"{LC_BATCHES} x {LC_BATCH} in {out['adds_s']:.2f}s; {check_graph(index, phase)}")
+
+    doomed = rng.choice(index.count, int(LC_DELETE * index.count), replace=False)
+    index.delete(doomed)
+    check_graph(index, phase)
+    fresh, fresh_rows, _ = suite_labels(LC_REUSE, rng)
+    t = elapsed()
+    reused = index.add(vectors[pos : pos + LC_REUSE], labels=fresh)
+    torch.cuda.synchronize()
+    out["reuse_add_s"] = elapsed() - t
+    if not np.isin(reused, doomed).all() or len(np.unique(reused)) != LC_REUSE:
+        fail(f"{phase}: the add did not land on {LC_REUSE} tombstoned ids")
+    stored = index.arrays.node_labels[torch.as_tensor(reused).cuda().long()].cpu().numpy()
+    want = np.sort(np.where(fresh_rows < 0, np.iinfo(np.int32).max, fresh_rows), axis=1)
+    if not np.array_equal(stored, want):
+        fail(f"{phase}: the reused rows do not hold their new labels")
+    out["label_starts"] = check_label_starts(index, phase)
+    say(f"  {phase}: deleted {len(doomed)} rows, added {LC_REUSE} onto tombstones with new "
+        f"labels in {out['reuse_add_s']:.2f}s; {out['label_starts']} label start entries, "
+        f"each on a row with its label; {check_graph(index, phase)}")
+
+    qlabels = [[int(x)] for x in rng.choice(FILTER_LABELS, size=NQ, p=pop)]
+    qdev = torch.as_tensor(queries).cuda()
+    params = QueryParams(search_list_size=100, rescore=300)
+    ids, dists = index.search(qdev, 10, params, query_labels=qlabels)
+    torch.cuda.synchronize()
+    if bool(index.arrays.deleted[ids.clamp_min(0).long()][ids >= 0].any()):
+        fail(f"{phase}: a search returned a deleted row")
+    check_filtered(ids, dists, label_rows(qlabels), index.arrays.node_labels, phase)
+    out["missing_results"] = int((ids < 0).sum())
+
+    with tempfile.TemporaryDirectory() as td:
+        index.save(Path(td) / "index")
+        out["checkpoint_bytes"] = (Path(td) / "index.npz").stat().st_size
+        loaded = DiskannIndex.load(Path(td) / "index")
+    check_graph(loaded, phase)
+    ids2, dists2 = loaded.search(qdev, 10, params, query_labels=qlabels)
+    if not (torch.equal(ids, ids2) and torch.equal(dists, dists2)):
+        fail(f"{phase}: the loaded index searches differently")
+    if not (np.array_equal(loaded.external_ids, index.external_ids)
+            and torch.equal(loaded.arrays.label_start_ids, index.arrays.label_start_ids)):
+        fail(f"{phase}: the loaded index lost its external ids or label table")
+    del loaded
+
+    live = np.nonzero(~index._deleted_np[: index.count])[0]
+    t = elapsed()
+    compacted = index.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = elapsed() - t
+    n = compacted.count
+    if n != index.num_live or not np.array_equal(compacted.external_ids,
+                                                 index.external_ids[live]):
+        fail(f"{phase}: compact did not keep the live rows' external ids")
+    if not torch.equal(compacted.arrays.node_labels[:n],
+                       index.arrays.node_labels[torch.as_tensor(live).cuda()]):
+        fail(f"{phase}: compact did not keep the live rows' labels")
+    check_label_starts(compacted, phase)
+    say(f"  {phase}: filtered search returned no deleted row, every result on its "
+        f"filter ({out['missing_results']} missing); save ({out['checkpoint_bytes']} B) "
+        f"and load search bit-equal; compact to {n} rows in {out['compact_s']:.2f}s "
+        f"keeping labels and external ids, {check_graph(compacted, phase)}")
+    check_deadline(phase)
+    return out
 
 
 def main() -> int:
@@ -997,6 +1367,29 @@ def main() -> int:
             fail("the plain path launched a kernel")
         gather_dot = time_gather_dot(p_index)
         del p_index
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the filtered path starts here
+        filtered = phase_filtered(vectors, queries, read_counts)
+        paths["filtered"] = filtered["launches"]  # read before its agreement check
+        peaks["filtered build"] = filtered["build_peak_bytes"]
+        peaks["filtered search"] = max(v["peak_bytes"] for v in filtered["search"].values())
+        point = "L={} rescore={} E={}".format(*FILTER_POINTS[-1])
+        say(f"phase 11 filtered: recall@10 {filtered['search']['1-label ' + point]['recall']:.4f} "
+            f"(1 label), {filtered['search']['2-label ' + point]['recall']:.4f} (2 labels) at "
+            f"{point}; launches {paths['filtered']} ({filtered['build_launches']} in the "
+            f"build); peak device memory of the build {peaks['filtered build']} B")
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the filtered life-cycle path starts here
+        torch.cuda.reset_peak_memory_stats()
+        f_life = phase_filtered_life_cycle(vectors, queries)
+        paths["filtered life cycle"] = read_counts()  # the filtered life cycle ends here
+        peaks["filtered life cycle"] = torch.cuda.max_memory_allocated()
+        say(f"phase 12 filtered life cycle: launches {paths['filtered life cycle']}; peak "
+            f"device memory {peaks['filtered life cycle']} B")
+        if min(paths["filtered life cycle"].values()) == 0:
+            fail("the filtered life cycle did not launch both kernels")
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 
@@ -1032,6 +1425,7 @@ def main() -> int:
         "plain_build_s": p_build_times,
         "plain_search": {str(k): v for k, v in p_search.items()},
         "gather_dot_ms": gather_dot,
+        "filtered": filtered, "filtered_life_cycle": f_life,
         "elapsed_s": elapsed(),
     }
     say(f"summary {json.dumps(summary)}")

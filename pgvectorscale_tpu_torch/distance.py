@@ -100,25 +100,31 @@ GATHER_CHUNK_BYTES = 1 << 30
 
 
 def row_distances(
-    vectors: torch.Tensor,  # f32[cap, D]
+    vectors: torch.Tensor,  # f32 or bf16[cap, D]
     query_vecs: torch.Tensor,  # f32[Q, Dq], Dq <= D
     ids: torch.Tensor,  # i32[Q, M] (clamped at 0; callers mask)
     distance_type: DistanceType,
 ) -> torch.Tensor:
     """Distances from each query to the rows ``vectors[ids]`` on their
     first ``Dq`` dims (the indexed prefix), ``[Q, M]``: the JAX package's
-    gather and ``gathered_distances``, over chunks of queries."""
+    gather and ``gathered_distances``, over chunks of queries.  bf16 rows
+    are gathered in their storage dtype (half the bytes read) and each
+    chunk is converted to float32 before the dot; chunks are sized by the
+    float32 rows they become."""
     q, m = ids.shape
     dq = query_vecs.shape[-1]
     table = vectors[:, :dq]
     safe = ids.clamp_min(0).long()
+
+    def part(rows_ids, qv):
+        return gathered_distances(table[rows_ids].to(torch.float32), qv, distance_type)
+
     per_query = m * dq * 4 * (2 if distance_type == DistanceType.L2 else 1)
     chunk = max(1, GATHER_CHUNK_BYTES // max(per_query, 1))
     if chunk >= q:
-        return gathered_distances(table[safe], query_vecs, distance_type)
+        return part(safe, query_vecs)
     return torch.cat([
-        gathered_distances(table[safe[i : i + chunk]], query_vecs[i : i + chunk],
-                           distance_type)
+        part(safe[i : i + chunk], query_vecs[i : i + chunk])
         for i in range(0, q, chunk)
     ])
 

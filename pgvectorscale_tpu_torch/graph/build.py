@@ -24,12 +24,16 @@ The build measures (``IndexConfig.build_distance``, SBQ storage):
 
 Plain storage (no codes) builds as ``exact`` does.
 
+Labeled indexes (Filtered-DiskANN): every searched wave runs a second,
+filtered beam search from the start nodes of each row's labels over the
+same adjacency, and its visit history joins the candidates; the prune is
+label-aware.  Brute-force waves have no filtered pass.
+
 Every step is batched over the wave.  Python loops run only where the
 JAX package runs a sequential loop: over waves, beam iterations,
 RobustPrune's dependent scan, the finalize batches and the BFS rounds.
 Rows that the JAX package writes with ``mode="drop"`` go through one
 spare row (``_set_rows``), so no write needs a host round trip.
-Unlabeled indexes only.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from .prune import (
     robust_prune,
     unpack_code_bits,
 )
-from .search import beam_search
+from .search import beam_search, get_start_ids
 
 logger = logging.getLogger("pgvectorscale_tpu_torch")
 
@@ -87,8 +91,6 @@ class BuildContext:
     """Build-wide settings derived once from the config."""
 
     def __init__(self, config: IndexConfig):
-        if config.has_labels:
-            raise NotImplementedError("labeled indexes are not ported yet")
         self.config = config
         self.alphas = alpha_schedule(config.max_alpha)
         self.code_bits = config.dims_to_index * config.bits_per_dimension
@@ -151,13 +153,21 @@ def prune_candidate_sets(
     num_neighbors: int,
     trunc_dims: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched add_neighbors-style prune: candidates -> neighbour lists."""
-    pair = candidate_pair_distances(
-        arrays, cand_ids, use_codes=use_codes, code_bits=code_bits,
-        distance_type=distance_type, trunc_dims=trunc_dims,
-    )
+    """Batched add_neighbors-style prune: candidates -> neighbour lists;
+    on a labeled index the nodes' and the candidates' labels go to the
+    label-aware prune.  The pair matrix is handed over without a reference
+    kept here, so the prune can free it once it has reordered it."""
+    cand_labels = node_labels = None
+    if arrays.node_labels.shape[1] > 0:
+        cand_labels = arrays.node_labels[cand_ids.clamp_min(0).long()]
+        node_labels = arrays.node_labels[node_ids.clamp_min(0).long()]
     return robust_prune(
-        node_ids, cand_ids, cand_dists, pair,
+        node_ids, cand_ids, cand_dists,
+        candidate_pair_distances(
+            arrays, cand_ids, use_codes=use_codes, code_bits=code_bits,
+            distance_type=distance_type, trunc_dims=trunc_dims,
+        ),
+        cand_labels, node_labels,
         num_neighbors=num_neighbors, alphas=alphas,
     )
 
@@ -255,8 +265,8 @@ def _brute_candidates(
             arrays.codes[safe_ids], arrays.codes[:slice_rows]
         ).to(torch.float32)
     else:
-        qv = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
-        pts = arrays.vectors[:slice_rows, :trunc_dims]
+        qv = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims].float()
+        pts = dequant_rows(arrays.vectors, slice(None, slice_rows))[:, :trunc_dims].float()
         dots = qv @ pts.T
         if distance_type == DistanceType.L2:
             q_sq = torch.sum(qv * qv, dim=-1, keepdim=True)
@@ -302,7 +312,7 @@ def _prune_rows_core(
             arrays.codes[safe_rows], arrays.codes, cand_ids
         ).to(torch.float32)
     else:
-        qv = dequant_rows(arrays.vectors, safe_rows)[:, :trunc_dims]
+        qv = dequant_rows(arrays.vectors, safe_rows)[:, :trunc_dims].float()
         cand_d = row_distances(arrays.vectors, qv, cand_ids, distance_type)
     cand_d = torch.where(cand_ids == INVALID_ID, torch.inf, cand_d)
     cand_ids, cand_d = _dedup_candidates(cand_ids, cand_d)
@@ -390,11 +400,19 @@ def _wave_step(
     precision, and candidates that Hamming traversal generated are
     re-measured (exact-prune).  ``include_existing`` (refinement) adds
     each node's current neighbours to its candidates, scored by the
-    prune's measure."""
+    prune's measure.
+
+    Labeled index: a searched wave runs a second, filtered beam search from
+    the start nodes of each row's labels (the live label table) over the
+    same adjacency, reading the live ``node_labels``; both visit
+    histories, deduped, are the candidates, and the prune is
+    label-aware."""
     l = search_list_size
     safe_ids = node_ids.clamp_min(0).long()
     query_codes = arrays.codes[safe_ids]
-    query_vecs = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims]
+    query_vecs = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims].float()
+    labeled = arrays.node_labels.shape[1] > 0
+    node_labels = arrays.node_labels[safe_ids] if labeled else None
     prune_kw = dict(
         use_codes=prune_use_codes, code_bits=code_bits,
         distance_type=distance_type, alphas=alphas,
@@ -416,12 +434,8 @@ def _wave_step(
         if use_codes and snap_adjacency is None:
             raise ValueError("a searched wave on codes needs the snapshot's adjacency")
         b = node_ids.shape[0]
-        start_ids = torch.full(
-            (b, 1), arrays.default_start, dtype=torch.int32, device=arrays.device
-        )
-        res = beam_search(
-            arrays._replace(adjacency=snap_adjacency) if use_codes else arrays,
-            query_codes, start_ids,
+        search_arrays = arrays._replace(adjacency=snap_adjacency) if use_codes else arrays
+        search_kw = dict(
             search_list_size=l,
             max_iters=max_iters,
             expand_factor=min(BUILD_EXPAND_FACTOR, l),
@@ -429,7 +443,20 @@ def _wave_step(
             use_codes=use_codes,
             distance_type=distance_type,
         )
+        res = beam_search(search_arrays, query_codes, get_start_ids(arrays, b),
+                          **search_kw)
         cand_ids, cand_dists = _dedup_candidates(res.hist_ids, res.hist_dists)
+        if labeled:
+            # The filtered pass from the label starts (two-phase insert,
+            # graph/mod.rs:652-660).
+            res_f = beam_search(
+                search_arrays, query_codes, get_start_ids(arrays, b, node_labels),
+                query_labels=node_labels, **search_kw,
+            )
+            cand_ids, cand_dists = _dedup_candidates(
+                torch.cat([cand_ids, res_f.hist_ids], dim=1),
+                torch.cat([cand_dists, res_f.hist_dists], dim=1),
+            )
 
     if include_existing:
         # Refinement: the current neighbours stay in contention.

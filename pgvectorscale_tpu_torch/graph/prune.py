@@ -10,10 +10,12 @@ batched over B nodes, with the JAX package's semantics:
   candidate j's occlusion factor to max(factor_j, d(j, node) / d(j, i)),
   with the reference's zero-divisor rules; j is pickable iff its factor
   <= alpha.
+- Label-aware (labeled indexes): picked i raises j's factor only if
+  labels_i contains labels_j ∩ node_labels (graph/mod.rs:452-462).
 
 The dependent scan is a Python loop of n_alphas * C steps, each a few
-in-place ops on [B, C] tensors; the [B, C, C] factor matrix is computed
-once up front.  Unlabeled indexes only.
+in-place ops on [B, C] tensors; the [B, C, C] factor matrix (and the
+[B, C, C] label gate) is computed once up front.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from typing import Optional
+
 from ..config import DistanceType
+from ..labels import pairwise_contains_intersection
 from ..ops.hamming import code_bits
 from ..store import INVALID_ID
 
@@ -45,12 +50,15 @@ def robust_prune(
     cand_ids: torch.Tensor,  # i32[B, C] (INVALID_ID padding; may hold node)
     cand_dists: torch.Tensor,  # f32[B, C] distance(candidate, node)
     pair_dists: torch.Tensor,  # f32[B, C, C] distance(candidate_i, candidate_j)
+    cand_labels: Optional[torch.Tensor] = None,  # i32[B, C, Lm] (labeled)
+    node_labels: Optional[torch.Tensor] = None,  # i32[B, Lm] (labeled)
     *,
     num_neighbors: int,
     alphas: tuple[float, ...],
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(neighbor_ids i32[B, R], neighbor_dists f32[B, R]) in selection
-    order, INVALID_ID / +inf padded."""
+    order, INVALID_ID / +inf padded.  With ``cand_labels`` of width > 0
+    the prune is label-aware."""
     b, c = cand_ids.shape
     r = num_neighbors
     dev = cand_ids.device
@@ -73,6 +81,11 @@ def robust_prune(
     tie_q = torch.gather(tie_q, 1, order)
     pair_dists = torch.gather(pair_dists, 1, order[:, :, None].expand(b, c, c))
     pair_dists = torch.gather(pair_dists, 2, order[:, None, :].expand(b, c, c))
+    labeled = cand_labels is not None and cand_labels.shape[-1] > 0
+    if labeled:
+        cand_labels = torch.gather(
+            cand_labels, 1, order[:, :, None].expand(-1, -1, cand_labels.shape[-1])
+        )
 
     # factor[b, i, j] = get_factor(num=d(j, node), div=d(j, i))
     tie_pair = (cand_ids[:, :, None] - cand_ids[:, None, :]).abs().to(torch.float32)
@@ -84,6 +97,9 @@ def robust_prune(
         num / torch.clamp_min(pair_dists, _F32_EPS),
     )
     del tie_pair, tie_ratio, pair_dists
+    if labeled:
+        # label_ok[b, i, j]: picked i may occlude j.
+        label_ok = pairwise_contains_intersection(cand_labels, node_labels)
 
     alphas_t = torch.tensor(alphas, dtype=torch.float32, device=dev)
     col = torch.arange(c, device=dev)
@@ -100,6 +116,8 @@ def robust_prune(
             sel[:, i] = torch.where(can_pick, count, sel[:, i])
             count += can_pick
             upd = can_pick[:, None] & (col > i)[None, :]
+            if labeled:
+                upd &= label_ok[:, i, :]
             torch.where(upd, torch.maximum(f, factor[:, i, :]), f, out=f)
             f[:, i] = torch.where(can_pick, _BIG, f[:, i])
 

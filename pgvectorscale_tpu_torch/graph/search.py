@@ -22,8 +22,13 @@ The loop is a Python loop over iterations with one host read per
 iteration (the termination test); everything inside an iteration is
 batched tensor work.  Ties follow the JAX package: ``lax.top_k`` and
 ``lax.sort`` become stable ``torch.sort``, and the bitonic network is the
-same network, so equal inputs give equal beams.  Only the unfiltered
-search is ported.
+same network, so equal inputs give equal beams.
+
+A filtered search (label sets, the ``&&`` predicate) starts from the
+default start and one start node per query label, and a neighbour stays
+a candidate only if its labels overlap the query's (sbq/storage.rs:
+165-172); the edge-gather kernel still scores every neighbour and the
+label mask is applied beside it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ import torch
 
 from ..config import DistanceType
 from ..distance import row_distances
+from ..labels import overlaps
 from ..ops.edge_gather import hamming_edge_gather
 from ..ops.hamming import hamming_gather
-from ..store import INVALID_ID, GraphArrays
+from ..store import INVALID_ID, GraphArrays, lookup_label_starts
 
 INF = math.inf
 _I32_MAX = 2**31 - 1
@@ -158,12 +164,22 @@ def _candidate_distances(
     return row_distances(arrays.vectors, query_vecs, ids, distance_type)
 
 
-def get_start_ids(arrays: GraphArrays, num_queries: int) -> torch.Tensor:
-    """Start nodes for each query: the default start (unfiltered search)."""
-    return torch.full(
+def get_start_ids(
+    arrays: GraphArrays,
+    num_queries: int,
+    query_labels: Optional[torch.Tensor] = None,  # i32[Q, Lq]
+) -> torch.Tensor:
+    """Start nodes for each query, i32[Q, 1 + Lq]: the default start,
+    followed, when the queries carry labels, by each label's start node
+    (INVALID_ID where the label has none; StartNodes::get_for_node,
+    graph/start_nodes.rs)."""
+    default = torch.full(
         (num_queries, 1), arrays.default_start, dtype=torch.int32,
         device=arrays.device,
     )
+    if query_labels is None or query_labels.shape[-1] == 0:
+        return default
+    return torch.cat([default, lookup_label_starts(arrays, query_labels)], dim=1)
 
 
 def beam_search(
@@ -179,6 +195,7 @@ def beam_search(
     use_codes: bool = True,
     distance_type: DistanceType = DistanceType.COSINE,
     window_n: int = 0,
+    query_labels: Optional[torch.Tensor] = None,  # i32[Q, Lq]
 ) -> SearchResult:
     """Batched greedy beam search; ``expand_factor`` (E) frontier nodes are
     visited per iteration, ``max_iters`` is the visit budget.
@@ -192,7 +209,11 @@ def beam_search(
     ``window_n`` > 0 keeps the best ``window_n`` scored candidates of the
     whole search in ``window_ids``/``window_dists``, seeded from the
     sorted start beam, with one window merge per step before the beam
-    merge; with 0 the window stays one column wide."""
+    merge; with 0 the window stays one column wide.
+
+    ``query_labels`` of width > 0 (a filtered search): a neighbour is a
+    candidate only if its labels (``arrays.node_labels``) overlap its
+    query's; the start nodes are not filtered."""
     q, s = start_ids.shape
     l = search_list_size
     r_max = arrays.max_degree
@@ -204,6 +225,7 @@ def beam_search(
         raise ValueError("full-precision traversal needs query_vecs")
     dev = start_ids.device
     i32 = dict(dtype=torch.int32, device=dev)
+    label_filter = query_labels is not None and query_labels.shape[-1] > 0
 
     def dist_fn(ids: torch.Tensor) -> torch.Tensor:
         return _candidate_distances(
@@ -288,6 +310,9 @@ def beam_search(
         safe_sel = sel_id.clamp_min(0)
         nbrs = arrays.adjacency[safe_sel.long()].reshape(q, er)
         valid = (nbrs != INVALID_ID) & active.repeat_interleave(r_max, dim=1)
+        if label_filter:
+            nbr_labels = arrays.node_labels[nbrs.clamp_min(0).long()]
+            valid = valid & overlaps(nbr_labels, query_labels[:, None, :])
         # Dedup against the beam (the reference's `inserted` set).
         in_beam = torch.any(nbrs[:, :, None] == beam_ids[:, None, :], dim=-1)
         valid = valid & ~in_beam

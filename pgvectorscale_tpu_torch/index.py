@@ -1,13 +1,17 @@
 """DiskannIndex: the index's life cycle (PyTorch port of ``index.py``).
 
-The slice of the JAX package's public index that unlabeled f32 indexes
-run, SBQ or plain storage: ``build`` (ingest, wave inserts, finalize,
-optional refinement passes; every ``build_distance``; N may be 0),
-``add`` (tombstone reuse first, then fresh rows), ``delete`` /
-``delete_external``, ``compact``, ``search`` with the "expand", "beam" and
-"scored" rescore windows, and ``save`` / ``load`` in the JAX package's
-checkpoint format (version 3; versions 1-2 are migrated on load).  Search
-results are internal row ids; ``to_external`` maps them.
+The JAX package's public index for f32 and bf16 vectors, SBQ or plain
+storage, labeled or not: ``build`` (ingest, wave inserts, finalize,
+optional refinement passes; every ``build_distance``; N may be 0; label
+sets per row), ``add`` (tombstone reuse first, then fresh rows),
+``delete`` / ``delete_external``, ``compact``, ``search`` with the
+"expand", "beam" and "scored" rescore windows and the label filter
+(``query_labels``: the ``&&`` overlap predicate), and ``save`` / ``load``
+in the JAX package's checkpoint format (version 3; versions 1-2 are
+migrated on load).  Search results are internal row ids;
+``to_external`` maps them.  The bf16 tier stores the rows in bfloat16
+(rounded to nearest even from the float32 rows, which the codes are
+encoded from) and converts gathered rows to float32 before each dot.
 
 Readers see snapshots, as in the JAX package: ``add`` and ``delete`` never
 write a tensor or host array that ``index.arrays`` or
@@ -51,6 +55,7 @@ from .graph.build import (
 )
 from .durability import atomic_write_npz, normalize_ckpt_path
 from .graph.search import _stable_sort_by, beam_search, get_start_ids
+from .labels import LABEL_SENTINEL, make_label_array, overlaps
 from .ops import sbq
 from .ops.edge_gather import hamming_edge_gather
 from .store import INVALID_ID, GraphArrays
@@ -120,14 +125,18 @@ def _finalize_results(
     query_vecs: torch.Tensor,  # f32[Q, D]
     beam_ids: torch.Tensor,  # i32[Q, L]
     beam_dists: torch.Tensor,  # f32[Q, L]
+    query_labels: Optional[torch.Tensor] = None,  # i32[Q, Lq] when filtered
     *,
     k: int,
     rescore_n: int,
     distance_type: DistanceType,
     use_exact: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Tombstone filter + full-precision rescore + top-k."""
-    live = (beam_ids != INVALID_ID) & ~arrays.deleted[beam_ids.clamp_min(0).long()]
+    """Tombstone filter + label filter + full-precision rescore + top-k."""
+    safe = beam_ids.clamp_min(0).long()
+    live = (beam_ids != INVALID_ID) & ~arrays.deleted[safe]
+    if query_labels is not None and query_labels.shape[-1] > 0:
+        live = live & overlaps(arrays.node_labels[safe], query_labels[:, None, :])
     d = torch.where(live, beam_dists, torch.inf)
     ids = torch.where(live, beam_ids, INVALID_ID)
     d, ids = _stable_sort_by(d, ids)
@@ -135,7 +144,7 @@ def _finalize_results(
         return ids[:, :k], d[:, :k]
     m = min(rescore_n + k, ids.shape[1])
     top_ids, top_d = ids[:, :m], d[:, :m]
-    # The f32 tier of the rescore: full-precision distances to the rows.
+    # Full-precision distances to the rows (bf16 rows converted to f32).
     exact = row_distances(arrays.vectors, query_vecs, top_ids, distance_type)
     exact = torch.where(top_ids == INVALID_ID, torch.inf, exact)
     exact = torch.where(top_d == torch.inf, torch.inf, exact)
@@ -157,11 +166,14 @@ def _search(
     expand_factor: int,
     expand_window_m: int = 0,
     window_n: int = 0,
+    query_labels: Optional[torch.Tensor] = None,
 ):
     """Query path: normalize, encode (SBQ; plain storage's query codes
-    are [Q, 0]), beam search, the rescore window ("scored": the search's
-    window buffer, deduped; "expand": the beam widened by 1-hop
-    neighbours), rescore, top-k."""
+    are [Q, 0]), start nodes (and the label starts when ``query_labels``
+    is given: a filtered search), beam search, the rescore window
+    ("scored": the search's window buffer, deduped; "expand": the beam
+    widened by 1-hop neighbours), label and tombstone filter, rescore,
+    top-k."""
     q = raw_queries.shape[0]
     qv = preprocess_query(raw_queries, config.distance_type)
     q_indexed = qv[:, : config.dims_to_index]
@@ -170,7 +182,8 @@ def _search(
     else:
         qc = torch.zeros((q, 0), dtype=torch.int32, device=qv.device)
     res = beam_search(
-        arrays, qc, get_start_ids(arrays, q),
+        arrays, qc, get_start_ids(arrays, q, query_labels),
+        query_labels=query_labels,
         search_list_size=search_list_size,
         max_iters=max_iters,
         expand_factor=expand_factor,
@@ -189,7 +202,7 @@ def _search(
             arrays, qc, cand_ids, cand_dists, expand_m=expand_window_m
         )
     ids, dists = _finalize_results(
-        arrays, qv, cand_ids, cand_dists,
+        arrays, qv, cand_ids, cand_dists, query_labels,
         k=k, rescore_n=rescore_n, distance_type=config.distance_type,
         use_exact=use_exact,
     )
@@ -208,7 +221,7 @@ def _ingest(raw: torch.Tensor, config: IndexConfig, capacity: int,
     if stats is None:
         stats = (sbq.train(indexed) if config.uses_sbq
                  else sbq.empty_stats(config.dims_to_index, raw.device))
-    arrays.vectors[:n] = dev
+    arrays.vectors[:n] = dev.to(arrays.vectors.dtype)
     if config.uses_sbq:
         arrays.codes[:n] = sbq.encode(indexed, stats, config.bits_per_dimension)
     return arrays._replace(count=n), stats
@@ -221,7 +234,7 @@ def _add_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
     ``arrays`` must be the caller's own tensors, never published ones."""
     m = raw.shape[0]
     dev = preprocess_query(raw, config.distance_type)
-    arrays.vectors[n0 : n0 + m] = dev
+    arrays.vectors[n0 : n0 + m] = dev.to(arrays.vectors.dtype)
     if config.uses_sbq:
         arrays.codes[n0 : n0 + m] = sbq.encode(
             dev[:, : config.dims_to_index], stats, config.bits_per_dimension
@@ -238,7 +251,7 @@ def _reuse_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
     never published ones."""
     dev = preprocess_query(raw, config.distance_type)
     idx = rows.long()
-    arrays.vectors[idx] = dev
+    arrays.vectors[idx] = dev.to(arrays.vectors.dtype)
     if config.uses_sbq:
         arrays.codes[idx] = sbq.encode(
             dev[:, : config.dims_to_index], stats, config.bits_per_dimension
@@ -292,6 +305,65 @@ def _as_vectors(vectors, device: torch.device) -> torch.Tensor:
     return vectors.to(device, torch.float32)
 
 
+def _register_label_starts(
+    arrays: GraphArrays,
+    label_arr: np.ndarray,  # i32[M, Lm] rows being stored
+    node_ids: np.ndarray,  # i32[M] where they are stored
+) -> GraphArrays:
+    """The first row carrying a label that has no start node becomes its
+    start node (update_start_nodes, graph/mod.rs:490-533).  New entries
+    fill the table's free slots in ascending order, in the order the
+    JAX package's row-by-row walk discovers them (row-major first
+    occurrence); the table doubles when it runs out.  Returns new table
+    tensors; the old ones are not written."""
+    keys = arrays.label_start_keys.cpu().numpy()
+    ids = arrays.label_start_ids.cpu().numpy()
+    lm = label_arr.shape[1]
+    flat = label_arr.reshape(-1)
+    rows = np.repeat(np.arange(label_arr.shape[0]), lm)
+    real = flat != LABEL_SENTINEL
+    labels, first = np.unique(flat[real], return_index=True)
+    new = ~np.isin(labels, keys[keys != LABEL_SENTINEL])
+    labels, first = labels[new], first[new]
+    if len(labels) == 0:
+        return arrays
+    order = np.argsort(first, kind="stable")
+    labels = labels[order]
+    nodes = np.asarray(node_ids)[rows[real][first[order]]]
+    free = np.nonzero(keys == LABEL_SENTINEL)[0]
+    if len(free) < len(labels):
+        grow_by = max(len(labels) - len(free), len(keys))
+        keys = np.concatenate([keys, np.full(grow_by, LABEL_SENTINEL, np.int32)])
+        ids = np.concatenate([ids, np.full(grow_by, INVALID_ID, np.int32)])
+        free = np.nonzero(keys == LABEL_SENTINEL)[0]
+    keys, ids = keys.copy(), ids.copy()
+    keys[free[: len(labels)]] = labels
+    ids[free[: len(labels)]] = nodes
+    return _with_label_table(arrays, keys, ids)
+
+
+def _clear_label_starts(arrays: GraphArrays, rows: np.ndarray) -> GraphArrays:
+    """Unregister every label start node among ``rows`` (rows about to be
+    recycled may start labels they will no longer carry); the label falls
+    back to the default start until a row registers it again."""
+    keys = arrays.label_start_keys.cpu().numpy()
+    ids = arrays.label_start_ids.cpu().numpy()
+    stale = np.isin(ids, rows) & (keys != LABEL_SENTINEL)
+    if not stale.any():
+        return arrays
+    keys, ids = keys.copy(), ids.copy()
+    keys[stale] = LABEL_SENTINEL
+    ids[stale] = INVALID_ID
+    return _with_label_table(arrays, keys, ids)
+
+
+def _with_label_table(arrays: GraphArrays, keys: np.ndarray, ids: np.ndarray) -> GraphArrays:
+    """``arrays`` with a new label table (new tensors on its device)."""
+    dev = arrays.device
+    return arrays._replace(label_start_keys=torch.from_numpy(keys).to(dev),
+                           label_start_ids=torch.from_numpy(ids).to(dev))
+
+
 class DiskannIndex:
     """A StreamingDiskANN index resident in one device's memory."""
 
@@ -342,6 +414,7 @@ class DiskannIndex:
         vectors,
         config: Optional[IndexConfig] = None,
         *,
+        labels=None,
         external_ids=None,
         device=None,
         progress_callback=None,
@@ -357,12 +430,15 @@ class DiskannIndex:
         up to ``max_wave`` rows, then finalize.  ``initial_wave=None``
         picks the schedule: ``max_wave`` throughout when N >= 2 *
         ``max_wave``, else a geometric ramp from INITIAL_WAVE.
-        ``sbq_stats`` reuses a trained quantizer (no training pass; its
-        tensors are moved to the device).  ``refine_passes`` re-inserts
-        every node against the finished graph that many times, each pass
-        followed by a finalize.  ``progress_callback(phase, done, total)``
-        is called after ingest, after every wave and around finalize (the
-        refinement passes included)."""
+        ``labels``: one label iterable (or None) per row, for an index
+        with ``max_labels_per_vector`` > 0; each label's first row becomes
+        its start node.  ``sbq_stats`` reuses a trained quantizer (no
+        training pass; its tensors are moved to the device).
+        ``refine_passes`` re-inserts every node against the finished graph
+        that many times, each pass followed by a finalize.
+        ``progress_callback(phase, done, total)`` is called after ingest,
+        after every wave and around finalize (the refinement passes
+        included)."""
         dev = resolve_device(device)
         vectors = _as_vectors(vectors, dev)
         if vectors.ndim != 2:
@@ -374,7 +450,14 @@ class DiskannIndex:
             raise ValueError(
                 f"config.num_dimensions={config.num_dimensions} != data dim {d}"
             )
-        BuildContext(config)  # rejects what the port does not build
+        store.vector_dtype(config.vector_dtype)  # rejects the int8 tier
+        if labels is not None and not config.has_labels:
+            raise ValueError("labels passed but config.max_labels_per_vector == 0")
+        label_arr = None
+        if n > 0 and labels is not None:
+            label_arr = make_label_array(list(labels), config.max_labels_per_vector)
+            if label_arr.shape[0] != n:
+                raise ValueError("labels must hold one entry per row")
         if external_ids is not None:
             external_ids = np.asarray(external_ids, dtype=np.int64)
             if external_ids.shape != (n,):
@@ -392,6 +475,10 @@ class DiskannIndex:
         with _full_f32():
             arrays, stats = _ingest(vectors, config, capacity, sbq_stats)
             del vectors
+            if label_arr is not None:
+                arrays.node_labels[:n] = torch.from_numpy(label_arr).to(dev)
+                arrays = _register_label_starts(
+                    arrays, label_arr, np.arange(n, dtype=np.int32))
             index = cls(config, arrays, stats, external_ids)
             if progress_callback:
                 progress_callback("training quantizer", n, n)
@@ -505,7 +592,7 @@ class DiskannIndex:
             waves_since_snap += 1
         return arrays
 
-    def add(self, vectors, *, external_ids=None) -> np.ndarray:
+    def add(self, vectors, *, labels=None, external_ids=None) -> np.ndarray:
         """Insert a batch of vectors [M, D]; returns their internal ids
         (i32, host).  The analog of aminsert: the quantizer is not
         retrained (an index built empty stays untrained), tombstoned rows
@@ -513,15 +600,29 @@ class DiskannIndex:
         inserted in one wave per MAX_WAVE rows, sized to the smallest power
         of two from 256 that fits.  Orphans are repaired afterwards.
 
+        ``labels`` (labeled indexes): one label iterable or None per row
+        (None everywhere when omitted).  Recycled rows first lose any label
+        start entry that points at them; then each new label's first row
+        becomes its start node.  Labels are validated before any work.
+
         Everything is built on new tensors and published at the end: the
         arrays, then the tombstone mirror and the external ids."""
-        self._ctx  # raises for what the port does not build, before any work
         vectors = _as_vectors(vectors, self.device)
         if vectors.ndim != 2 or vectors.shape[1] != self.config.num_dimensions:
             raise ValueError("vectors must be [M, num_dimensions]")
         m = vectors.shape[0]
         if m == 0:
             return np.zeros((0,), dtype=np.int32)
+        if labels is not None and not self.config.has_labels:
+            raise ValueError("labels passed to an unlabeled index")
+        label_arr = None
+        if self.config.has_labels:
+            label_arr = make_label_array(
+                list(labels) if labels is not None else [None] * m,
+                self.config.max_labels_per_vector,
+            )
+            if label_arr.shape[0] != m:
+                raise ValueError("labels must hold one entry per row")
         if external_ids is None:
             base = int(self.external_ids.max()) + 1 if len(self.external_ids) else 0
             external_ids = np.arange(base, base + m, dtype=np.int64)
@@ -550,6 +651,7 @@ class DiskannIndex:
                     vectors=arrays.vectors.clone(), codes=arrays.codes.clone(),
                     adjacency=arrays.adjacency.clone(),
                     deleted=arrays.deleted.clone(),
+                    node_labels=arrays.node_labels.clone(),
                 )
             if n_reuse:
                 arrays = _reuse_ingest(
@@ -560,6 +662,16 @@ class DiskannIndex:
                 arrays = _add_ingest(
                     arrays, self.sbq_stats, vectors[n_reuse:], n0, self.config
                 )
+            if label_arr is not None:
+                new_labels = torch.from_numpy(label_arr).to(self.device)
+                if n_reuse:
+                    arrays = _clear_label_starts(arrays, reuse_rows)
+                    arrays.node_labels[torch.from_numpy(reuse_rows).to(self.device).long()] = (
+                        new_labels[:n_reuse])
+                    arrays = _register_label_starts(arrays, label_arr[:n_reuse], reuse_rows)
+                if fresh:
+                    arrays.node_labels[n0:needed] = new_labels[n_reuse:]
+                    arrays = _register_label_starts(arrays, label_arr[n_reuse:], fresh_ids)
             add_bucket = INITIAL_WAVE
             while add_bucket < min(m, MAX_WAVE):
                 add_bucket *= 2
@@ -622,18 +734,24 @@ class DiskannIndex:
 
     def compact(self) -> "DiskannIndex":
         """A new index over the live rows, rebuilt on the same device; the
-        external ids are kept."""
+        external ids and label sets are kept.  bf16 rows are converted to
+        float32 and rounded to bf16 again on ingest."""
         live = np.nonzero(~self._deleted_np[: self.count])[0]
-        vectors = self.arrays.vectors[torch.from_numpy(live).to(self.device)]
+        live_dev = torch.from_numpy(live).to(self.device)
+        vectors = store.dequant_rows(self.arrays.vectors, live_dev).float()
+        labels = None
+        if self.config.has_labels:
+            labels = [[int(v) for v in row if v != LABEL_SENTINEL]
+                      for row in self.arrays.node_labels[live_dev].cpu().numpy()]
         return DiskannIndex.build(
-            vectors, self.config, external_ids=self.external_ids[live],
-            device=self.device,
+            vectors, self.config, labels=labels,
+            external_ids=self.external_ids[live], device=self.device,
         )
 
     def save(self, path) -> None:
-        """Write the JAX package's checkpoint format (version 3, f32 tier,
-        no labels) to ``path`` (``.npz`` appended when missing),
-        atomically."""
+        """Write the JAX package's checkpoint format (version 3; bf16
+        vectors as their uint16 bit view) to ``path`` (``.npz`` appended
+        when missing), atomically."""
         path = normalize_ckpt_path(path)
         arrays, external_ids = self.arrays, self.external_ids
         host = store.to_host(arrays)
@@ -661,9 +779,10 @@ class DiskannIndex:
 
     @classmethod
     def load(cls, path, *, device=None) -> "DiskannIndex":
-        """Read a checkpoint of either package (versions 1-3).  Labeled
-        checkpoints, the bf16/int8 tiers and a mutation journal beside the
-        file are not ported and raise NotImplementedError."""
+        """Read a checkpoint of either package (versions 1-3), labeled or
+        not, f32 or bf16 (a label table of any grown capacity is kept as
+        saved).  The int8 tier and a mutation journal beside the file are
+        not ported and raise NotImplementedError."""
         dev = resolve_device(device)
         path = normalize_ckpt_path(path)
         if os.path.isdir(path + ".journal"):
@@ -684,21 +803,24 @@ class DiskannIndex:
                 )
             z = _migrate_checkpoint({k: z[k] for k in z.files}, version)
         config = IndexConfig.from_dict(json.loads(bytes(z["config"]).decode()))
-        if config.has_labels or config.vector_dtype != "f32":
-            raise NotImplementedError(
-                "the port loads unlabeled checkpoints of the f32 tier"
-            )
-        n = z["vectors"].shape[0]
+        vectors = store.vectors_from_host(z["vectors"], config.vector_dtype)
+        n = vectors.shape[0]
         arrays = store.empty_arrays(config, max(_round_up(n, 1024), 1024), dev)
 
-        def put(dst: torch.Tensor, src: np.ndarray) -> None:
-            dst[:n] = torch.from_numpy(np.ascontiguousarray(src)).to(dev)
+        def put(dst: torch.Tensor, src) -> None:
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.ascontiguousarray(src))
+            dst[:n] = src.to(dev)
 
-        put(arrays.vectors, z["vectors"].astype(np.float32))
+        put(arrays.vectors, vectors)
         put(arrays.codes, z["codes"].astype(np.uint32).view(np.int32))
         put(arrays.adjacency, z["adjacency"].astype(np.int32))
+        put(arrays.node_labels, z["node_labels"].astype(np.int32))
         put(arrays.deleted, z["deleted"].astype(bool))
-        arrays = arrays._replace(count=n, default_start=int(z["default_start"]))
+        arrays = _with_label_table(
+            arrays._replace(count=n, default_start=int(z["default_start"])),
+            z["label_start_keys"].astype(np.int32), z["label_start_ids"].astype(np.int32),
+        )
         stats = sbq.SbqStats(
             count=int(z["sbq_count"]),
             mean=torch.from_numpy(z["sbq_mean"].astype(np.float32)).to(dev),
@@ -722,11 +844,18 @@ class DiskannIndex:
         k: int,
         params: Optional[QueryParams] = None,
         *,
+        query_labels=None,
+        max_label_width: Optional[int] = None,
         device=None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Batched top-k: queries [Q, D] -> (ids i32[Q, k], dists f32[Q, k])
         on the index's device.  Missing results are INVALID_ID / +inf.
-        ``device`` must name the device the index lives on."""
+        ``query_labels``: one label iterable (or None) per query; a result
+        must carry at least one of its query's labels (``labels && $1``),
+        and the search also starts from each label's start node.  Label
+        rows are ``max_label_width`` wide (default: the index's
+        ``max_labels_per_vector``).  ``device`` must name the device the
+        index lives on."""
         dev = resolve_device(device)
         if dev.type != self.device.type or (
             dev.index is not None and dev.index != self.device.index
@@ -746,6 +875,13 @@ class DiskannIndex:
                 f"query dimension {queries.shape[1]} != index dimension "
                 f"{config.num_dimensions}"
             )
+        ql = None
+        if query_labels is not None:
+            width = max_label_width or config.max_labels_per_vector
+            ql = torch.from_numpy(make_label_array(list(query_labels), width)).to(
+                self.device)
+            if ql.shape[0] != queries.shape[0]:
+                raise ValueError("query_labels must hold one entry per query")
         l = max(params.search_list_size, k)
         use_exact = self._needs_rescore(params)
         # A rescore window wider than the beam: "expand" (SBQ) caps the beam
@@ -779,6 +915,7 @@ class DiskannIndex:
                 expand_factor=min(params.expand, l),
                 expand_window_m=expand_window_m,
                 window_n=window_n,
+                query_labels=ql,
             )
         self.last_search = res
         return ids, dists
@@ -787,11 +924,13 @@ class DiskannIndex:
 def from_jax_state(host_arrays, sbq_stats, config, *, external_ids=None,
                    device=None) -> DiskannIndex:
     """A port index over the JAX package's index state: its
-    ``store.to_host`` arrays, its SBQ statistics (count, mean, m2), its
-    config and its external ids (default: the row ids).  Codes arrive as
-    uint32 and are carried as their int32 bit view."""
+    ``store.to_host`` arrays (labels and label table included), its SBQ
+    statistics (count, mean, m2), its config and its external ids
+    (default: the row ids).  Codes arrive as uint32 and are carried as
+    their int32 bit view; bf16 vectors arrive as ml_dtypes bfloat16 and
+    are carried through their uint16 view, bit for bit."""
     dev = resolve_device(device)
     if not isinstance(config, IndexConfig):
         config = IndexConfig.from_dict(config.to_dict())
-    arrays = store.from_host(host_arrays, dev)
+    arrays = store.from_host(host_arrays, dev, config.vector_dtype)
     return DiskannIndex(config, arrays, _stats_on(sbq_stats, dev), external_ids)

@@ -286,3 +286,55 @@ def test_full_precision_build_and_add_on_card_match_cpu(cuda_device, mode, monke
             assert (edge_gather.launches > before[0]) == (mode == "exact")
         graphs.append(index.arrays.adjacency.cpu())
     assert torch.equal(graphs[0], graphs[1])
+
+
+@pytest.mark.cuda
+def test_labeled_bf16_build_and_filtered_search_on_card_match_cpu(cuda_device, monkeypatch):
+    """A labeled bf16 exact-prune build (L2, 3,000 x 32 vectors of
+    integers in -3..3: exact in bf16, every distance an integer) with the
+    brute-force threshold lowered to 256 rows, so searched waves run
+    their filtered pass, then a filtered search with 1- and 2-label
+    queries: the card gives the CPU's graph, label table, ids and
+    distances exactly, and edge_gather launches in the build and in the
+    search."""
+    import numpy as np
+
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch import index as index_mod
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.graph import build
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+
+    for mod in (build, index_mod):
+        monkeypatch.setattr(mod, "BRUTE_CANDIDATE_THRESHOLD", 256)
+    rng = np.random.default_rng(8)
+    base = rng.integers(-3, 4, (3000, 32)).astype(np.float32)
+    pop = 1.0 / np.arange(1, 13)
+    pop /= pop.sum()
+    draws = rng.choice(12, (3000, 2), p=pop)
+    labels = [sorted({int(a), int(b)}) for a, b in draws]
+    queries = base[:64] + np.float32(1.0)
+    qlabels = [[i % 12] if i % 2 else [i % 12, (i + 5) % 12] for i in range(64)]
+    config = IndexConfig(num_dimensions=32, distance_type=DistanceType.L2, num_neighbors=16,
+                         search_list_size=32, max_labels_per_vector=2, vector_dtype="bf16")
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        before = edge_gather.launches
+        index = DiskannIndex.build(base, config, labels=labels, device=dev)
+        mid = edge_gather.launches
+        ids, dists = index.search(queries, 10, QueryParams(search_list_size=32, rescore=50),
+                                  query_labels=qlabels, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert mid > before and edge_gather.launches > mid
+            assert index.arrays.vectors.dtype == torch.bfloat16
+            assert bool(reachable_on_device(index.arrays)[:3000].all())
+        results.append([t.cpu() for t in (index.arrays.adjacency, index.arrays.node_labels,
+                                          index.arrays.label_start_keys,
+                                          index.arrays.label_start_ids, ids, dists)])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    ids = results[0][4].numpy()
+    assert (ids >= 0).all()
+    for row, ql in zip(ids, qlabels):
+        assert all(set(labels[i]) & set(ql) for i in row)

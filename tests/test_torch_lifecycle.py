@@ -216,18 +216,16 @@ def test_delete_and_compact(churned):
     assert (ids.numpy() >= 0).all()
 
 
-@pytest.mark.parametrize("change", ["labels", "bf16", "journal", "future", "magic"])
+@pytest.mark.parametrize("change", ["int8", "journal", "future", "magic"])
 def test_load_refuses_what_the_port_does_not_read(tmp_path, change):
-    """Labeled and bf16 checkpoints and a journal beside the file are not
-    ported (NotImplementedError); a newer version or a foreign file is
-    refused (ValueError), as the JAX package refuses them."""
+    """int8 checkpoints and a journal beside the file are not ported
+    (NotImplementedError); a newer version or a foreign file is refused
+    (ValueError), as the JAX package refuses them."""
     z = _npz(os.path.join(FIXTURES, "checkpoint_v3.npz"))
     cfg = json.loads(bytes(z["config"]).decode())
     err = NotImplementedError
-    if change == "labels":
-        cfg["max_labels_per_vector"] = 2
-    elif change == "bf16":
-        cfg["vector_dtype"] = "bf16"
+    if change == "int8":
+        cfg["vector_dtype"] = "int8"
     elif change == "journal":
         os.makedirs(tmp_path / "ckpt.npz.journal")
     elif change == "future":

@@ -95,7 +95,10 @@ def test_unpack_pairwise_and_pair_distances_match_jax(rng, w, bits):
     parr = build.GraphArrays(vectors=torch.zeros((cap, 1)), codes=_i32(table),
                              adjacency=torch.zeros((cap, 1), dtype=torch.int32),
                              deleted=torch.zeros(cap, dtype=torch.bool), count=cap,
-                             default_start=0)
+                             default_start=0,
+                             node_labels=torch.zeros((cap, 0), dtype=torch.int32),
+                             label_start_keys=torch.zeros(0, dtype=torch.int32),
+                             label_start_ids=torch.zeros(0, dtype=torch.int32))
     got = build.candidate_pair_distances(
         parr, torch.from_numpy(cand), use_codes=True, code_bits=bits,
         distance_type=DistanceType.COSINE, trunc_dims=bits)
