@@ -87,8 +87,42 @@ Phases, each reported on a timestamped, flushed line:
    add with new labels leaves no label start entry on a row without its
    label; a filtered search returns no deleted row and holds every
    filter; save/load bit-equal; compact keeps labels and external ids).
+13. int8 scale: the JAX repo's capacity deployment (benchmarks/scale.py:
+   "cohere" 768 dims, seed 42, cosine, SBQ 1 bit/dim, int8 rows, R=50,
+   L=100, 1,024 queries), cut to SCALE_N = 1,000,000 rows (the script's
+   default is 5,000,000) and built with the library's max_wave of 4,096
+   (the script's 2,048 was chosen for a 16 GB chip).  The host corpus is
+   3.07 GB of float32, so ``build`` must take the chunked ingest: 6 chunks
+   of 175,104 rows (fails if the one-shot ingest runs).  Seconds for
+   ingest / waves / finalize, the scatter BFS alone, the graph checks; the
+   chunked quantizer statistics against one ``sbq.train`` pass over the
+   whole corpus on the card (mean within 1e-4 of its largest magnitude,
+   M2 within 1e-4 relative per dimension) and the share of code words
+   equal under the two; then scale.py's five (L, rescore, E, strategy,
+   visit_factor) points: recall@10 against the exact top-10 over the
+   float32 corpus (computed on the card in query chunks), QPS best of 3,
+   peak device memory, edge_gather launches (> 0 each); the floor
+   SCALE_MIN_RECALL holds at the widest "expand" point.  Then, outside the
+   path, the rescore (``index._exact_batch_distances``) at
+   benchmarks/kernels.py's "rescore-tiers" shape (n = 1M, d = 768,
+   q = 1,024, m = 310 random ids, L2, standard-normal rows) for f32, bf16
+   and int8 tables, CUDA events behind the device sleep, beside each
+   one's byte bound; the int8 : f32 ratio.
+14. stream, on phase 13's index: ``WHERE flag ORDER BY emb <=> q LIMIT 10``
+   post-filtered through ``search_iter`` (reference query defaults,
+   L=100, rescore 50), ``flag`` a seeded column true on 1% of rows; 16
+   queries each pull until 10 rows pass.  Hard checks: no id twice in a
+   stream, no deleted id, each yielded distance within 1e-5 of the int8
+   exact rescore of its id.  Recall@10 against the filtered exact top-10,
+   rows pulled, visits (``total_visits``), microseconds per visit and
+   edge_gather launches per visit.  Then ``iter_step`` on the card emits
+   the CPU plain path's ids over 3 refills for 4 queries (a CPU copy of
+   the index), and a full-table scan of a 16,384-row int8 index with 10%
+   deleted yields every live row once in at most ``count`` visits.
+15. int8 life cycle: phase 7 with ``vector_dtype="int8"`` (the reader's
+   arrays it checks include ``vec_scales``).
 
-Each path (phases 3-4, 5b, 6, 7, 8, 9, 10, 11 and 12) is driven with the
+Each path (phases 3-4, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15) is driven with the
 kernels' launch counts set to 0 just before it and read just after; the
 kernels line sums them.  The peak device memory
 (``torch.cuda.max_memory_allocated``) is reset at the start of each
@@ -117,26 +151,31 @@ BUDGET_S = 600
 # Seconds since start by which each phase must have ended.
 DEADLINES = {
     "device": 60,
-    "kernel build": 180,
-    "kernel vs plain": 220,
-    "build": 250,
-    "search": 260,
-    "agreement": 270,
-    "windows": 290,
-    "storage build": 315,
-    "storage search": 325,
-    "life cycle": 355,
-    "refine build": 385,
-    "refine search": 395,
-    "exact build": 415,
-    "exact search": 425,
-    "exact add": 435,
-    "plain build": 455,
-    "plain search": 465,
-    "filtered build": 520,
-    "filtered search": 545,
-    "filtered agreement": 555,
-    "filtered life cycle": 595,
+    "kernel build": 120,
+    "kernel vs plain": 140,
+    "build": 160,
+    "search": 168,
+    "agreement": 173,
+    "windows": 185,
+    "storage build": 200,
+    "storage search": 206,
+    "life cycle": 222,
+    "refine build": 240,
+    "refine search": 246,
+    "exact build": 258,
+    "exact search": 264,
+    "exact add": 270,
+    "plain build": 282,
+    "plain search": 288,
+    "filtered build": 318,
+    "filtered search": 332,
+    "filtered agreement": 338,
+    "filtered life cycle": 360,
+    "int8 build": 500,
+    "int8 search": 530,
+    "rescore tiers": 540,
+    "stream": 575,
+    "int8 life cycle": 595,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
@@ -188,6 +227,26 @@ MIN_FILTERED_RECALL = 0.50
 RARE_LABELS, RARE_QUERIES = 5, 64
 RARE_REACH_FLOOR = {96: 209, 99: 271, 95: 269, 94: 277, 98: 1}
 KERNELS = ("edge_gather", "hamming_matrix")
+# Phase 13, benchmarks/scale.py's deployment: rows (cut from 5,000,000),
+# seed, and the (L, rescore, E, strategy, visit_factor) points; the recall
+# floor holds at the widest "expand" point.  Ground truth runs in chunks
+# of GT_CHUNK queries.
+SCALE_N, SCALE_SEED = 1_000_000, 42
+SCALE_POINTS = ((100, 150, 4, "expand", 1.0), (150, 300, 2, "expand", 1.0),
+                (150, 600, 2, "expand", 2.0), (300, 1500, 2, "expand", 2.0),
+                (300, 1500, 2, "beam", 2.0))
+SCALE_MIN_RECALL = 0.80
+GT_CHUNK = 128
+# Tolerances of the chunked quantizer statistics against one pass.
+STATS_RTOL = 1e-4
+# benchmarks/kernels.py "rescore-tiers": candidate ids a query.
+TIER_M = 310
+# Phase 14: queries streamed, rows each must find, the flag column's share
+# and seed; the agreement's queries and refills; the full scan's rows and
+# deleted share.
+STREAM_QUERIES, STREAM_K, FLAG_SHARE, FLAG_SEED = 16, 10, 0.01, 13
+AGREE_QUERIES, AGREE_REFILLS = 4, 3
+SCAN_N, SCAN_DELETE = 16_384, 0.10
 
 
 def elapsed() -> float:
@@ -628,6 +687,38 @@ def phase_search(index, vectors, queries, phase: str, rescores=(50, 300)):
     return results, peak
 
 
+def search_point(index, qdev, params, gt, name: str, phase: str) -> dict:
+    """One search point: ``timed_search`` (best of 3) with the peak device
+    memory and edge_gather launches of its runs; fails on invalid results
+    (shape, finite distances, ids in range, no id twice in a row) or no
+    launch; returns recall@10 against ``gt``, QPS and the rest."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import edge_gather
+
+    before = edge_gather.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ids, dists, secs = timed_search(index, qdev, params)
+    peak = torch.cuda.max_memory_allocated()
+    launches = edge_gather.launches - before
+    if launches == 0:
+        fail(f"{phase}: {name} did not launch edge_gather")
+    s_ids = torch.sort(ids, dim=1).values
+    if (ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all())
+            or bool(((ids < 0) | (ids >= index.count)).any())
+            or bool((s_ids[:, 1:] == s_ids[:, :-1]).any())):
+        fail(f"{phase}: {name} returned invalid results")
+    recall = recall_at_10(ids, gt)
+    out = dict(recall=recall, qps=NQ / min(secs), seconds=secs, peak_bytes=peak,
+               edge_gather_launches=launches, iters=index.last_search.iters)
+    say(f"  {name}: recall@10 {recall:.4f}, QPS {NQ / min(secs):.1f} (best of "
+        f"{[round(t, 4) for t in secs]} s), {index.last_search.iters} beam "
+        f"iterations, edge_gather launches {launches}, peak device memory {peak} B")
+    check_deadline(phase)
+    return out
+
+
 def phase_windows(index, vectors, queries) -> dict:
     """Every window strategy at each WINDOW_POINTS (L, rescore, E) on the
     exact-prune index: valid results (ids in range, no id twice in a row,
@@ -636,7 +727,6 @@ def phase_windows(index, vectors, queries) -> dict:
     import torch
 
     from pgvectorscale_tpu_torch import QueryParams
-    from pgvectorscale_tpu_torch.ops import edge_gather
 
     phase = "windows"
     gt = ground_truth(vectors, queries, index.config)
@@ -646,30 +736,10 @@ def phase_windows(index, vectors, queries) -> dict:
         for strategy in WINDOW_STRATEGIES:
             params = QueryParams(search_list_size=l, rescore=rescore, expand=e,
                                  window_strategy=strategy)
-            before = edge_gather.launches
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ids, dists, secs = timed_search(index, qdev, params)
-            peak = torch.cuda.max_memory_allocated()
-            launches = edge_gather.launches - before
             name = f"{strategy} L={l} rescore={rescore} E={e}"
-            if launches == 0:
-                fail(f"{phase}: {name} did not launch edge_gather")
-            s_ids = torch.sort(ids, dim=1).values
-            if (ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all())
-                    or bool(((ids < 0) | (ids >= index.count)).any())
-                    or bool((s_ids[:, 1:] == s_ids[:, :-1]).any())):
-                fail(f"{phase}: {name} returned invalid results")
-            recall = recall_at_10(ids, gt)
-            out[name] = dict(recall=recall, qps=NQ / min(secs), seconds=secs,
-                             peak_bytes=peak, edge_gather_launches=launches,
-                             iters=index.last_search.iters)
-            say(f"  {name}: recall@10 {recall:.4f}, QPS {NQ / min(secs):.1f} (best of "
-                f"{[round(t, 4) for t in secs]} s), {index.last_search.iters} beam "
-                f"iterations, edge_gather launches {launches}, peak device memory {peak} B")
-            if rescore == 300 and recall < MIN_RECALL:
+            out[name] = search_point(index, qdev, params, gt, name, phase)
+            if rescore == 300 and out[name]["recall"] < MIN_RECALL:
                 fail(f"{phase}: {name} recall@10 is below {MIN_RECALL}")
-            check_deadline(phase)
     return out
 
 
@@ -745,21 +815,24 @@ def phase_exact(vectors, queries, counts) -> dict:
     return out
 
 
-def phase_life_cycle(vectors, queries) -> dict:
+def phase_life_cycle(vectors, queries, phase: str = "life cycle", **config_kw) -> dict:
     """Build small, stream adds, delete, reuse tombstones, search, save and
-    load, compact: the index life cycle in storage mode, 768 wide."""
+    load, compact: the index life cycle in storage mode, 768 wide, with
+    ``IndexConfig(**config_kw)`` (phase 15: the int8 tier)."""
     import numpy as np
     import torch
 
     from pgvectorscale_tpu_torch import DiskannIndex, ExactIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch import store
     from pgvectorscale_tpu_torch.ops import hamming_matrix
 
-    phase = "life cycle"
-    config = IndexConfig(num_dimensions=DIM, build_distance="storage")
+    config = IndexConfig(num_dimensions=DIM, build_distance="storage", **config_kw)
     out = {}
     t = elapsed()
     index = DiskannIndex.build(vectors[:LC_BUILD], config)
     out["build_s"] = elapsed() - t
+    if index.arrays.vectors.dtype != store.vector_dtype(config.vector_dtype):
+        fail(f"{phase}: the rows are stored as {index.arrays.vectors.dtype}")
     # Internal id -> the input row stored there, from the ids that build
     # and add return: the recall oracle is built from the input, not from
     # what the index stored.
@@ -866,6 +939,20 @@ def phase_life_cycle(vectors, queries) -> dict:
     return out
 
 
+def state_on(index, dev):
+    """The index's arrays and SBQ statistics, copied to ``dev``."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    arrays = index.arrays._replace(**{
+        f: v.to(dev) for f, v in zip(index.arrays._fields, index.arrays)
+        if isinstance(v, torch.Tensor)})
+    stats = sbq.SbqStats(index.sbq_stats.count, index.sbq_stats.mean.to(dev),
+                         index.sbq_stats.m2.to(dev))
+    return arrays, stats
+
+
 def phase_agreement(index, queries, query_labels=None, phase: str = "agreement") -> None:
     """The beam search on the card equals the same search by the plain
     versions on the CPU for 64 queries; with ``query_labels``, the
@@ -881,11 +968,7 @@ def phase_agreement(index, queries, query_labels=None, phase: str = "agreement")
     q = torch.as_tensor(queries[:64])
     outs = []
     for dev in ("cuda", "cpu"):
-        arrays = index.arrays._replace(**{
-            f: v.to(dev) for f, v in zip(index.arrays._fields, index.arrays)
-            if isinstance(v, torch.Tensor)})
-        stats = sbq.SbqStats(index.sbq_stats.count, index.sbq_stats.mean.to(dev),
-                             index.sbq_stats.m2.to(dev))
+        arrays, stats = state_on(index, dev)
         qv = preprocess_query(q.to(dev), cfg.distance_type)
         qc = sbq.encode(qv, stats, cfg.bits_per_dimension)
         ql = None
@@ -1225,6 +1308,325 @@ def phase_filtered_life_cycle(vectors, queries) -> dict:
     return out
 
 
+def scale_oracles(vectors, queries, flag, index) -> dict:
+    """On the card, from the float32 corpus: the exact top-10 of every
+    query (cosine, GT_CHUNK queries at a time), the filtered exact top-10
+    of the stream's queries over the ``flag`` rows, and the chunked
+    quantizer statistics held against one ``sbq.train`` pass (mean within
+    STATS_RTOL of its largest magnitude, M2 within STATS_RTOL relative per
+    dimension), with the share of code words equal under the two."""
+    import torch
+
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.distance import distance_matrix, preprocess_query
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    cfg = index.config
+    vn = preprocess_query(torch.from_numpy(vectors).cuda(), DistanceType.COSINE)
+    qn = preprocess_query(torch.as_tensor(queries).cuda(), DistanceType.COSINE)
+    gt = torch.cat([
+        torch.topk(distance_matrix(qn[i : i + GT_CHUNK], vn, DistanceType.COSINE), 10,
+                   largest=False).indices
+        for i in range(0, NQ, GT_CHUNK)]).to(torch.int32)
+    fidx = torch.from_numpy(flag.nonzero()[0]).cuda()
+    fd = distance_matrix(qn[:STREAM_QUERIES], vn[fidx], DistanceType.COSINE)
+    fgt = fidx[torch.topk(fd, STREAM_K, largest=False).indices]
+    one = sbq.train(vn)
+    got = index.sbq_stats
+    mean_err = float((got.mean - one.mean).abs().max() / one.mean.abs().max())
+    m2_err = float(((got.m2 - one.m2).abs() / one.m2.abs()).max())
+    equal = 0
+    for i in range(0, SCALE_N, 1 << 17):
+        part = vn[i : i + (1 << 17)]
+        codes = sbq.encode(part, one, cfg.bits_per_dimension)
+        equal += int((codes == index.arrays.codes[i : i + part.shape[0]]).sum())
+    share = equal / (SCALE_N * cfg.num_code_words)
+    del vn
+    torch.cuda.empty_cache()
+    say(f"  int8 scale: chunked statistics vs one pass on the card: mean off by "
+        f"{mean_err:.3e} of its largest magnitude, M2 by {m2_err:.3e} relative at most; "
+        f"{share:.6f} of the code words equal")
+    if mean_err > STATS_RTOL or m2_err > STATS_RTOL:
+        fail(f"int8 scale: the chunked statistics differ from one pass by more than "
+             f"{STATS_RTOL}")
+    return dict(gt=gt, filtered_gt=fgt.cpu().numpy(),
+                stats=dict(mean_err=mean_err, m2_err=m2_err, equal_code_words=share))
+
+
+def phase_scale(counts):
+    """Phase 13: benchmarks/scale.py's int8 deployment at SCALE_N rows
+    through the chunked ingest, its oracles and its five search points.
+    Returns (index, corpus, queries, flag, filtered top-10, results)."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch import index as index_mod
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+    from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
+
+    t = elapsed()
+    vectors, queries = synthetic_corpus("cohere", SCALE_N, NQ, seed=SCALE_SEED)
+    vectors = np.ascontiguousarray(vectors)
+    out = dict(corpus_s=elapsed() - t)
+    say(f"phase 13 int8 scale: corpus cohere {vectors.shape} ({vectors.nbytes} B on the "
+        f"host) + {queries.shape} queries, seed {SCALE_SEED}, made in {out['corpus_s']:.2f}s")
+    ingests = {"chunks": 0, "one-shot": 0}
+    real_chunk, real_one = index_mod._ingest_chunk, index_mod._ingest
+
+    def chunk_spy(*a, **k):
+        ingests["chunks"] += 1
+        return real_chunk(*a, **k)
+
+    def one_spy(*a, **k):
+        ingests["one-shot"] += 1
+        return real_one(*a, **k)
+
+    index_mod._ingest_chunk, index_mod._ingest = chunk_spy, one_spy
+    try:
+        start = counts()
+        torch.cuda.reset_peak_memory_stats()
+        index, out["build_s"] = phase_build(vectors, "int8 build", counts=counts,
+                                            num_bits_per_dimension=1, vector_dtype="int8")
+        out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        index_mod._ingest_chunk, index_mod._ingest = real_chunk, real_one
+    out["build_launches"] = {k: v - start[k] for k, v in counts().items()}
+    out["ingest_chunks"] = ingests["chunks"]
+    a = index.arrays
+    out["store_bytes"] = {f: v.numel() * v.element_size() for f, v in zip(a._fields, a)
+                          if isinstance(v, torch.Tensor)}
+    torch.cuda.synchronize()
+    t = elapsed()
+    reach = int(reachable_on_device(a)[: index.count].sum())
+    torch.cuda.synchronize()
+    out["bfs_s"] = elapsed() - t
+    say(f"  int8 build: {ingests['chunks']} ingest chunks, one-shot ingests "
+        f"{ingests['one-shot']}; scatter BFS over {index.count} rows {out['bfs_s']:.3f}s "
+        f"({reach} reachable); launches {out['build_launches']}; peak device memory "
+        f"{out['build_peak_bytes']} B; store {out['store_bytes']}")
+    if ingests["one-shot"] or ingests["chunks"] != -(-SCALE_N // index_mod._ingest_chunk_rows(
+            SCALE_N, DIM)):
+        fail("int8 build: the build did not take the chunked ingest")
+    if a.vectors.dtype != torch.int8 or out["build_launches"]["edge_gather"] == 0:
+        fail("int8 build: int8 rows and edge_gather launches expected")
+
+    flag = np.random.default_rng(FLAG_SEED).random(SCALE_N) < FLAG_SHARE
+    oracles = scale_oracles(vectors, queries, flag, index)
+    out["stats"] = oracles["stats"]
+    qdev = torch.as_tensor(queries).cuda()
+    out["search"] = {}
+    for l, rescore, e, strategy, vf in SCALE_POINTS:
+        params = QueryParams(search_list_size=l, rescore=rescore, expand=e,
+                             window_strategy=strategy, visit_factor=vf)
+        name = f"{strategy} L={l} rescore={rescore} E={e} visit_factor={vf}"
+        out["search"][name] = search_point(index, qdev, params, oracles["gt"], name,
+                                           "int8 search")
+    widest = max((p for p in SCALE_POINTS if p[3] == "expand"), key=lambda p: p[:2])
+    name = "{3} L={0} rescore={1} E={2} visit_factor={4}".format(*widest)
+    if out["search"][name]["recall"] < SCALE_MIN_RECALL:
+        fail(f"int8 search: recall@10 at {name} is below {SCALE_MIN_RECALL}")
+    return index, queries, flag, oracles["filtered_gt"], out
+
+
+def phase_rescore_tiers() -> dict:
+    """The rescore at benchmarks/kernels.py's "rescore-tiers" shape (n =
+    SCALE_N, d = 768, q = NQ, m = TIER_M random ids, L2 on standard-normal
+    rows) for f32, bf16 and int8 tables; CUDA events behind the device
+    sleep; each beside its byte bound (every gathered row read once, ids,
+    scales and queries read, distances written; the distinct rows, about
+    27% fewer, are the floor if rows were read once each)."""
+    import torch
+
+    from pgvectorscale_tpu_torch import store
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.index import _exact_batch_distances
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    base = torch.randn((SCALE_N, DIM), device="cuda", generator=g)
+    ids = [torch.randint(0, SCALE_N, (NQ, TIER_M), dtype=torch.int32, device="cuda",
+                         generator=g) for _ in range(4)]
+    qv = torch.randn((NQ, DIM), device="cuda", generator=g)
+    distinct = sum(int(torch.unique(t).numel()) for t in ids) // len(ids)
+    out = {}
+    for tier in ("f32", "bf16", "int8"):
+        if tier == "int8":
+            vecs, scales = store.quantize_rows(base)
+        else:
+            vecs = base.to(store.vector_dtype(tier))
+            scales = torch.ones((SCALE_N,), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(
+            lambda i: _exact_batch_distances(vecs, scales, qv, ids[i % 4], DistanceType.L2), 8)
+        peak = torch.cuda.max_memory_allocated()
+        row = DIM * vecs.element_size()
+        small = NQ * TIER_M * 4 * (3 if tier == "int8" else 2) + NQ * DIM * 4
+        nbytes = NQ * TIER_M * row + small
+        out[tier] = dict(ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
+                         distinct_rows_bound_ms=(distinct * row + small) / HBM_BYTES_PER_S * 1e3,
+                         peak_bytes=peak)
+        say(f"  rescore tiers, {tier}: {ms:.4f} ms (q={NQ}, m={TIER_M}, d={DIM}, n={SCALE_N}, "
+            f"L2), byte bound {out[tier]['bound_ms']:.4f} ms ({nbytes} B; "
+            f"{out[tier]['distinct_rows_bound_ms']:.4f} ms over the {distinct} distinct rows); "
+            f"peak device memory {peak} B")
+        del vecs, scales
+    out["int8_speedup"] = out["f32"]["ms"] / out["int8"]["ms"]
+    out["bf16_speedup"] = out["f32"]["ms"] / out["bf16"]["ms"]
+    say(f"phase 13 rescore tiers: int8 : f32 speed {out['int8_speedup']:.3f}, bf16 : f32 "
+        f"{out['bf16_speedup']:.3f}")
+    del base
+    torch.cuda.empty_cache()
+    check_deadline("rescore tiers")
+    return out
+
+
+def stream_one(index, query, flag) -> dict:
+    """One post-filtered stream: pull from ``search_iter`` until STREAM_K
+    rows pass ``flag``; no id twice, no deleted id, every distance within
+    1e-5 of the int8 exact rescore of its id."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch.distance import preprocess_query
+    from pgvectorscale_tpu_torch.ops import edge_gather
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    before = edge_gather.launches
+    it = index.search_iter(query, QueryParams(search_list_size=100, rescore=50))
+    ids, dists, hits = [], [], []
+    for nid, d in it:
+        ids.append(nid)
+        dists.append(d)
+        if flag[nid]:
+            hits.append(nid)
+            if len(hits) == STREAM_K:
+                break
+    visits = it.total_visits
+    secs = time.perf_counter() - t
+    launches = edge_gather.launches - before
+    if len(set(ids)) != len(ids):
+        fail("stream: an id came twice")
+    if index._deleted_np[ids].any():
+        fail("stream: a deleted id came out")
+    qv = preprocess_query(torch.as_tensor(query[None, :]).cuda(), index.config.distance_type)
+    exact = index.exact_distances_for(qv[0], np.asarray(ids))
+    err = float(np.abs(exact - np.asarray(dists, np.float32)).max())
+    if err > 1e-5:
+        fail(f"stream: yielded distances differ from the int8 rescore by {err}")
+    return dict(ids=ids, hits=hits, pulled=len(ids), visits=visits, seconds=secs,
+                launches=launches, dist_err=err)
+
+
+def iterate_agreement(index, queries) -> bool:
+    """``iter_step`` on the card and on a CPU copy of the index (plain
+    versions) emit the same ids and distances over AGREE_REFILLS refills
+    (the iterator's window doubling from 128) for AGREE_QUERIES queries."""
+    import torch
+
+    from pgvectorscale_tpu_torch.distance import preprocess_query
+    from pgvectorscale_tpu_torch.graph import iterate
+    from pgvectorscale_tpu_torch.graph.search import get_start_ids
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    cfg = index.config
+    kw = dict(distance_type=cfg.distance_type, use_codes=True)
+    copies = {dev: state_on(index, dev) for dev in ("cuda", "cpu")}
+    same = True
+    for qi in range(AGREE_QUERIES):
+        outs = []
+        for dev, (arrays, stats) in copies.items():
+            qv = preprocess_query(torch.as_tensor(queries[qi : qi + 1]).to(dev),
+                                  cfg.distance_type)[0]
+            qc = sbq.encode(qv[None], stats, cfg.bits_per_dimension)[0]
+            state = iterate.init_state(arrays, qv, qc, get_start_ids(arrays, 1)[0],
+                                       frontier=256, **kw)
+            emitted = []
+            emit_n = 128
+            for _ in range(AGREE_REFILLS):
+                state, ids, d = iterate.iter_step(state, arrays, qv, qc, emit_n=emit_n,
+                                                  visit_budget=4 * emit_n, **kw)
+                emitted += [ids.cpu(), d.cpu()]
+                emit_n *= 2
+            outs.append(emitted + [state.n_visits.cpu()])
+        same = same and all(torch.equal(a, b) for a, b in zip(*outs))
+    del copies
+    return same
+
+
+def phase_stream(index, queries, flag, filtered_gt) -> dict:
+    """Phase 14 on phase 13's index: the post-filtered streams, the
+    card-CPU agreement of ``iter_step``, and a full-table scan of a
+    SCAN_N-row int8 index with SCAN_DELETE of its rows deleted."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
+    from pgvectorscale_tpu_torch.ops import edge_gather
+
+    phase = "stream"
+    out = dict(queries=[])
+    for qi in range(STREAM_QUERIES):
+        r = stream_one(index, queries[qi], flag)
+        r["recall"] = len(set(r["hits"]) & set(filtered_gt[qi].tolist())) / STREAM_K
+        del r["ids"], r["hits"]
+        out["queries"].append(r)
+        check_deadline(phase)
+    qs = out["queries"]
+    visits = sum(r["visits"] for r in qs)
+    out.update(recall=float(np.mean([r["recall"] for r in qs])),
+               pulled_mean=float(np.mean([r["pulled"] for r in qs])),
+               visits_mean=visits / len(qs),
+               us_per_visit=sum(r["seconds"] for r in qs) / visits * 1e6,
+               launches_per_visit=sum(r["launches"] for r in qs) / visits)
+    say(f"phase 14 stream: {STREAM_QUERIES} post-filtered streams (flag on "
+        f"{int(flag.sum())} rows): recall@10 {out['recall']:.4f} against the filtered exact "
+        f"top-10; rows pulled {out['pulled_mean']:.1f}, visits {out['visits_mean']:.1f} a "
+        f"query (pulled {[r['pulled'] for r in qs]}); {out['us_per_visit']:.1f} us a visit, "
+        f"edge_gather launches a visit {out['launches_per_visit']:.3f}; no id twice, no "
+        f"deleted id, distances within {max(r['dist_err'] for r in qs):.2e} of the rescore")
+    if min(r["visits"] for r in qs) <= 0 or out["launches_per_visit"] < 1:
+        fail("stream: the iterator did not traverse through edge_gather")
+
+    t = elapsed()
+    out["agreement"] = iterate_agreement(index, queries)
+    say(f"  stream: iter_step on the card vs the CPU's plain path, {AGREE_QUERIES} queries x "
+        f"{AGREE_REFILLS} refills: {'equal' if out['agreement'] else 'DIFFERENT'} "
+        f"({elapsed() - t:.2f}s)")
+    if not out["agreement"]:
+        fail("stream: the card's iter_step differs from the CPU's")
+    check_deadline(phase)
+
+    vectors, _ = synthetic_corpus("cohere", SCAN_N, 1, seed=SCALE_SEED)
+    small = DiskannIndex.build(vectors, IndexConfig(num_dimensions=DIM, num_bits_per_dimension=1,
+                                                    vector_dtype="int8"))
+    doomed = np.random.default_rng(SEED).choice(SCAN_N, int(SCAN_DELETE * SCAN_N),
+                                                replace=False)
+    small.delete(doomed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    before = edge_gather.launches
+    it = small.search_iter(vectors[0], QueryParams(search_list_size=100, rescore=50))
+    got = [nid for nid, _ in it]
+    secs = time.perf_counter() - t
+    live = set(range(SCAN_N)) - set(doomed.tolist())
+    scan = dict(rows=len(got), live=len(live), visits=it.total_visits, seconds=secs,
+                us_per_visit=secs / max(it.total_visits, 1) * 1e6,
+                launches=edge_gather.launches - before)
+    out["full_scan"] = scan
+    say(f"  stream: full scan of {SCAN_N} int8 rows, {len(doomed)} deleted: {len(got)} rows "
+        f"({len(set(got))} distinct) in {secs:.2f}s, {scan['visits']} visits, "
+        f"{scan['us_per_visit']:.1f} us a visit, edge_gather launches {scan['launches']}")
+    if len(got) != len(set(got)) or set(got) != live:
+        fail("stream: the full scan did not yield every live row exactly once")
+    if not 0 < scan["visits"] <= small.count:
+        fail(f"stream: the full scan took {scan['visits']} visits over {small.count} rows")
+    check_deadline(phase)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "pgvectorscale_tpu_torch").is_dir():
         print("chip_smoke.py: the pgvectorscale_tpu_torch package is not beside "
@@ -1390,6 +1792,38 @@ def main() -> int:
             f"device memory {peaks['filtered life cycle']} B")
         if min(paths["filtered life cycle"].values()) == 0:
             fail("the filtered life cycle did not launch both kernels")
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the int8 scale path starts here
+        s_index, s_queries, flag, filtered_gt, scale = phase_scale(read_counts)
+        paths["int8 scale"] = read_counts()  # the int8 scale path ends here
+        peaks["int8 build"] = scale["build_peak_bytes"]
+        peaks["int8 search"] = max(v["peak_bytes"] for v in scale["search"].values())
+        say(f"phase 13 int8 scale: launches {paths['int8 scale']} "
+            f"({scale['build_launches']} in the build); peak device memory of the build "
+            f"{peaks['int8 build']} B, of a search up to {peaks['int8 search']} B")
+        tiers = phase_rescore_tiers()  # outside the path
+
+        reset_counts()  # the stream path starts here
+        torch.cuda.reset_peak_memory_stats()
+        stream = phase_stream(s_index, s_queries, flag, filtered_gt)
+        paths["stream"] = read_counts()  # the stream path ends here
+        peaks["stream"] = torch.cuda.max_memory_allocated()
+        say(f"phase 14 stream: launches {paths['stream']}; peak device memory "
+            f"{peaks['stream']} B")
+        del s_index
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the int8 life-cycle path starts here
+        torch.cuda.reset_peak_memory_stats()
+        i_life = phase_life_cycle(vectors, queries, phase="int8 life cycle",
+                                  vector_dtype="int8")
+        paths["int8 life cycle"] = read_counts()  # the int8 life cycle ends here
+        peaks["int8 life cycle"] = torch.cuda.max_memory_allocated()
+        say(f"phase 15 int8 life cycle: launches {paths['int8 life cycle']}; peak device "
+            f"memory {peaks['int8 life cycle']} B")
+        if min(paths["int8 life cycle"].values()) == 0:
+            fail("the int8 life cycle did not launch both kernels")
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 
@@ -1426,6 +1860,8 @@ def main() -> int:
         "plain_search": {str(k): v for k, v in p_search.items()},
         "gather_dot_ms": gather_dot,
         "filtered": filtered, "filtered_life_cycle": f_life,
+        "int8_scale": scale, "rescore_tiers": tiers, "stream": stream,
+        "int8_life_cycle": i_life,
         "elapsed_s": elapsed(),
     }
     say(f"summary {json.dumps(summary)}")

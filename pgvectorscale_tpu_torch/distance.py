@@ -16,6 +16,8 @@ package's ``Precision.HIGHEST``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -100,25 +102,31 @@ GATHER_CHUNK_BYTES = 1 << 30
 
 
 def row_distances(
-    vectors: torch.Tensor,  # f32 or bf16[cap, D]
+    vectors: torch.Tensor,  # f32, bf16 or int8[cap, D]
     query_vecs: torch.Tensor,  # f32[Q, Dq], Dq <= D
     ids: torch.Tensor,  # i32[Q, M] (clamped at 0; callers mask)
     distance_type: DistanceType,
+    scales: Optional[torch.Tensor] = None,  # f32[cap], the int8 tier's
 ) -> torch.Tensor:
     """Distances from each query to the rows ``vectors[ids]`` on their
     first ``Dq`` dims (the indexed prefix), ``[Q, M]``: the JAX package's
-    gather and ``gathered_distances``, over chunks of queries.  bf16 rows
-    are gathered in their storage dtype (half the bytes read) and each
-    chunk is converted to float32 before the dot; chunks are sized by the
-    float32 rows they become."""
+    gather and ``gathered_distances``, over chunks of queries.  bf16 and
+    int8 rows are gathered in their storage dtype (fewer bytes read) and
+    each chunk is converted to float32 (int8 rows times their ``scales``)
+    before the dot; chunks are sized by the float32 rows they become."""
     q, m = ids.shape
     dq = query_vecs.shape[-1]
     table = vectors[:, :dq]
     safe = ids.clamp_min(0).long()
 
     def part(rows_ids, qv):
-        return gathered_distances(table[rows_ids].to(torch.float32), qv, distance_type)
+        rows = table[rows_ids].to(torch.float32)
+        if table.dtype == torch.int8:
+            rows = rows * scales[rows_ids][..., None]
+        return gathered_distances(rows, qv, distance_type)
 
+    if table.dtype == torch.int8 and scales is None:
+        raise ValueError("int8 rows need their scales")
     per_query = m * dq * 4 * (2 if distance_type == DistanceType.L2 else 1)
     chunk = max(1, GATHER_CHUNK_BYTES // max(per_query, 1))
     if chunk >= q:

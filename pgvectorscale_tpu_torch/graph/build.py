@@ -121,7 +121,7 @@ def candidate_pair_distances(
     ``use_codes``, else full precision on the indexed prefix."""
     safe = cand_ids.clamp_min(0).long()
     if not use_codes:
-        vecs = dequant_rows(arrays.vectors, safe)[..., :trunc_dims]
+        vecs = dequant_rows(arrays.vectors, arrays.vec_scales, safe)[..., :trunc_dims]
         return pairwise_distance_matrix_full(vecs, distance_type)
     codes = arrays.codes[safe]  # [B, C, W]
     if code_bits <= _PAIRWISE_CHUNK_BITS:
@@ -265,8 +265,9 @@ def _brute_candidates(
             arrays.codes[safe_ids], arrays.codes[:slice_rows]
         ).to(torch.float32)
     else:
-        qv = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims].float()
-        pts = dequant_rows(arrays.vectors, slice(None, slice_rows))[:, :trunc_dims].float()
+        qv = dequant_rows(arrays.vectors, arrays.vec_scales, safe_ids)[:, :trunc_dims].float()
+        pts = dequant_rows(
+            arrays.vectors, arrays.vec_scales, slice(None, slice_rows))[:, :trunc_dims].float()
         dots = qv @ pts.T
         if distance_type == DistanceType.L2:
             q_sq = torch.sum(qv * qv, dim=-1, keepdim=True)
@@ -312,8 +313,8 @@ def _prune_rows_core(
             arrays.codes[safe_rows], arrays.codes, cand_ids
         ).to(torch.float32)
     else:
-        qv = dequant_rows(arrays.vectors, safe_rows)[:, :trunc_dims].float()
-        cand_d = row_distances(arrays.vectors, qv, cand_ids, distance_type)
+        qv = dequant_rows(arrays.vectors, arrays.vec_scales, safe_rows)[:, :trunc_dims].float()
+        cand_d = row_distances(arrays.vectors, qv, cand_ids, distance_type, arrays.vec_scales)
     cand_d = torch.where(cand_ids == INVALID_ID, torch.inf, cand_d)
     cand_ids, cand_d = _dedup_candidates(cand_ids, cand_d)
     nbr_ids, _ = prune_candidate_sets(
@@ -410,7 +411,8 @@ def _wave_step(
     l = search_list_size
     safe_ids = node_ids.clamp_min(0).long()
     query_codes = arrays.codes[safe_ids]
-    query_vecs = dequant_rows(arrays.vectors, safe_ids)[:, :trunc_dims].float()
+    query_vecs = dequant_rows(
+        arrays.vectors, arrays.vec_scales, safe_ids)[:, :trunc_dims].float()
     labeled = arrays.node_labels.shape[1] > 0
     node_labels = arrays.node_labels[safe_ids] if labeled else None
     prune_kw = dict(
@@ -464,7 +466,8 @@ def _wave_step(
         if prune_use_codes:
             ex_d = hamming_gather(query_codes, arrays.codes, existing).to(torch.float32)
         else:
-            ex_d = row_distances(arrays.vectors, query_vecs, existing, distance_type)
+            ex_d = row_distances(arrays.vectors, query_vecs, existing, distance_type,
+                                 arrays.vec_scales)
         ex_d = torch.where(existing == INVALID_ID, torch.inf, ex_d)
         cand_ids, cand_dists = _dedup_candidates(
             torch.cat([cand_ids, existing], dim=1), torch.cat([cand_dists, ex_d], dim=1)
@@ -472,7 +475,8 @@ def _wave_step(
 
     if use_codes and not prune_use_codes and not brute:
         # exact-prune: re-measure the Hamming-generated candidates.
-        ex = row_distances(arrays.vectors, query_vecs, cand_ids, distance_type)
+        ex = row_distances(arrays.vectors, query_vecs, cand_ids, distance_type,
+                           arrays.vec_scales)
         cand_dists = torch.where(cand_ids == INVALID_ID, torch.inf, ex)
 
     nbr_ids, _ = prune_candidate_sets(

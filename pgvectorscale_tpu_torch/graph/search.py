@@ -161,7 +161,7 @@ def _candidate_distances(
     are clamped; callers mask them."""
     if use_codes:
         return hamming_gather(query_codes, arrays.codes, ids).to(torch.float32)
-    return row_distances(arrays.vectors, query_vecs, ids, distance_type)
+    return row_distances(arrays.vectors, query_vecs, ids, distance_type, arrays.vec_scales)
 
 
 def get_start_ids(

@@ -1,17 +1,22 @@
 """DiskannIndex: the index's life cycle (PyTorch port of ``index.py``).
 
-The JAX package's public index for f32 and bf16 vectors, SBQ or plain
-storage, labeled or not: ``build`` (ingest, wave inserts, finalize,
-optional refinement passes; every ``build_distance``; N may be 0; label
-sets per row), ``add`` (tombstone reuse first, then fresh rows),
-``delete`` / ``delete_external``, ``compact``, ``search`` with the
-"expand", "beam" and "scored" rescore windows and the label filter
-(``query_labels``: the ``&&`` overlap predicate), and ``save`` / ``load``
-in the JAX package's checkpoint format (version 3; versions 1-2 are
-migrated on load).  Search results are internal row ids;
-``to_external`` maps them.  The bf16 tier stores the rows in bfloat16
-(rounded to nearest even from the float32 rows, which the codes are
-encoded from) and converts gathered rows to float32 before each dot.
+The JAX package's public index for f32, bf16 and int8 vectors, SBQ or
+plain storage, labeled or not: ``build`` (ingest, in chunks above
+INGEST_CHUNK_BYTES of host input; wave inserts, finalize, optional
+refinement passes; every ``build_distance``; N may be 0; label sets per
+row), ``add`` (tombstone reuse first, then fresh rows), ``delete`` /
+``delete_external``, ``compact``, ``search`` with the "expand", "beam"
+and "scored" rescore windows and the label filter (``query_labels``: the
+``&&`` overlap predicate), the streaming ``search_iter``
+(``SearchIterator``, resumable traversal in ``graph/iterate.py``), and
+``save`` / ``load`` in the JAX package's checkpoint format (version 3;
+versions 1-2 are migrated on load).  Search results are internal row
+ids; ``to_external`` maps them.  The bf16 tier stores the rows in
+bfloat16 (rounded to nearest even from the float32 rows, which the codes
+are encoded from) and converts gathered rows to float32 before each dot;
+the int8 tier stores round-half-even(x / scale) with a per-row scale
+(``store.quantize_rows``) and rescores with the scale factored out of the
+sum (``_exact_batch_distances``).
 
 Readers see snapshots, as in the JAX package: ``add`` and ``delete`` never
 write a tensor or host array that ``index.arrays`` or
@@ -30,18 +35,19 @@ float32 (TF32 off) for the whole call.
 from __future__ import annotations
 
 import contextlib
+import heapq
 import json
 import logging
 import math
 import os
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from . import store
 from .config import CHECKPOINT_MAGIC, CHECKPOINT_VERSION, DistanceType, IndexConfig, QueryParams
-from .distance import preprocess_query, row_distances
+from .distance import GATHER_CHUNK_BYTES, preprocess_query, row_distances
 from .graph.build import (
     BRUTE_CANDIDATE_THRESHOLD,
     BUILD_SNAPSHOT_REFRESH_WAVES,
@@ -120,6 +126,63 @@ def _expand_rescore_window(
     )
 
 
+def _exact_batch_distances(
+    vectors: torch.Tensor,  # f32, bf16 or int8[cap, D]
+    scales: torch.Tensor,  # f32[cap]
+    query_vecs: torch.Tensor,  # f32[Q, D]
+    ids: torch.Tensor,  # i32[Q, M] (clamped; callers mask)
+    distance_type: DistanceType,
+) -> torch.Tensor:
+    """Full-precision distances from each query to its candidate rows,
+    f32[Q, M]: the rescore.
+
+    int8 rows: the per-row scale factors out of the sum (<s·r, q> =
+    s·<r, q>, ||s·r||² = s²·||r||²), and the query is split into
+    q_hi = bf16(q) and q_lo = bf16(q - q_hi), as in the JAX package's two
+    bf16 passes with float32 accumulation.  int8 values and both halves
+    are exact in float32, so each pass is one full-float32 product of the
+    widened operands (``torch.bmm`` on bf16 operands would round the sums
+    to bf16); ||r||² sums integer products below 2**24, exactly.  The
+    rows are widened per chunk of queries, at most GATHER_CHUNK_BYTES of
+    float32 rows (twice that for L2) on top of their int8 gather.
+    Other tiers: ``distance.row_distances``."""
+    if vectors.dtype != torch.int8:
+        return row_distances(vectors, query_vecs, ids, distance_type, scales)
+    q, m = ids.shape
+    safe = ids.clamp_min(0).long()
+    q_hi = query_vecs.to(torch.bfloat16).to(torch.float32)
+    q_lo = (query_vecs - q_hi).to(torch.bfloat16).to(torch.float32)
+    q_split = torch.stack([q_hi, q_lo], dim=2)  # [Q, D, 2]
+    l2 = distance_type == DistanceType.L2
+    per_query = m * vectors.shape[1] * 4 * (2 if l2 else 1)
+    chunk = max(1, GATHER_CHUNK_BYTES // max(per_query, 1))
+    out = []
+    for i in range(0, max(q, 1), chunk):
+        idx = safe[i : i + chunk]
+        rows = vectors[idx].to(torch.float32)  # [c, M, D], exact
+        parts = torch.bmm(rows, q_split[i : i + chunk])  # [c, M, 2]
+        dot = parts[..., 0] + parts[..., 1]
+        sc = scales[idx]
+        if l2:
+            rnorm2 = torch.sum(rows * rows, dim=-1)
+            qv = query_vecs[i : i + chunk]
+            qnorm2 = torch.sum(qv * qv, dim=-1)[:, None]
+            out.append(torch.clamp_min(sc * sc * rnorm2 - 2.0 * sc * dot + qnorm2, 0.0))
+        elif distance_type == DistanceType.INNER_PRODUCT:
+            out.append(-(sc * dot))
+        else:
+            out.append(torch.clamp_min(1.0 - sc * dot, 0.0))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _exact_distances(arrays: GraphArrays, query_vec: torch.Tensor, ids: torch.Tensor,
+                     distance_type: DistanceType) -> torch.Tensor:
+    """Full-precision distances from one query f32[D] to rows i32[M]."""
+    return _exact_batch_distances(
+        arrays.vectors, arrays.vec_scales, query_vec[None, :], ids[None, :], distance_type
+    )[0]
+
+
 def _finalize_results(
     arrays: GraphArrays,
     query_vecs: torch.Tensor,  # f32[Q, D]
@@ -144,8 +207,8 @@ def _finalize_results(
         return ids[:, :k], d[:, :k]
     m = min(rescore_n + k, ids.shape[1])
     top_ids, top_d = ids[:, :m], d[:, :m]
-    # Full-precision distances to the rows (bf16 rows converted to f32).
-    exact = row_distances(arrays.vectors, query_vecs, top_ids, distance_type)
+    exact = _exact_batch_distances(
+        arrays.vectors, arrays.vec_scales, query_vecs, top_ids, distance_type)
     exact = torch.where(top_ids == INVALID_ID, torch.inf, exact)
     exact = torch.where(top_d == torch.inf, torch.inf, exact)
     sd, sids = _stable_sort_by(exact, top_ids)
@@ -209,21 +272,84 @@ def _search(
     return ids, dists, res
 
 
+def _store_rows(arrays: GraphArrays, dev: torch.Tensor, stats: sbq.SbqStats, idx,
+                config: IndexConfig) -> None:
+    """Write preprocessed float32 rows ``dev`` at ``idx`` (a slice or row
+    ids), in place: the rows in the tier's storage form (int8: quantized,
+    with their scales) and, for SBQ, their codes under ``stats``."""
+    if config.vector_dtype == "int8":
+        arrays.vectors[idx], arrays.vec_scales[idx] = store.quantize_rows(dev)
+    else:
+        arrays.vectors[idx] = dev.to(arrays.vectors.dtype)
+    if config.uses_sbq:
+        arrays.codes[idx] = sbq.encode(
+            dev[:, : config.dims_to_index], stats, config.bits_per_dimension
+        )
+
+
 def _ingest(raw: torch.Tensor, config: IndexConfig, capacity: int,
             stats: Optional[sbq.SbqStats] = None):
     """Allocate the store, normalize, train the quantizer (unless
     ``stats`` is given, or the storage is plain, which keeps untrained
-    statistics and no codes), encode."""
+    statistics and no codes), encode, store the rows (int8: quantized)."""
     n = raw.shape[0]
     arrays = store.empty_arrays(config, capacity, raw.device)
     dev = preprocess_query(raw, config.distance_type)
-    indexed = dev[:, : config.dims_to_index]
     if stats is None:
-        stats = (sbq.train(indexed) if config.uses_sbq
+        stats = (sbq.train(dev[:, : config.dims_to_index]) if config.uses_sbq
                  else sbq.empty_stats(config.dims_to_index, raw.device))
-    arrays.vectors[:n] = dev.to(arrays.vectors.dtype)
-    if config.uses_sbq:
-        arrays.codes[:n] = sbq.encode(indexed, stats, config.bits_per_dimension)
+    _store_rows(arrays, dev, stats, slice(0, n), config)
+    return arrays._replace(count=n), stats
+
+
+# Host input above this many float32 bytes is ingested in chunks: the
+# one-shot ingest holds the input and the store on the device at once.
+INGEST_CHUNK_BYTES = 1 << 30
+
+
+def _ingest_chunk_rows(n: int, d: int) -> int:
+    """Rows a chunk of the chunked ingest: about 512 MiB of float32 input,
+    a multiple of 1,024 rows, at most N rounded up."""
+    return min(_round_up(max(1, (512 << 20) // (d * 4)), 1024), _round_up(n, 1024))
+
+
+def _train_chunk(stats: sbq.SbqStats, raw_chunk: torch.Tensor,
+                 config: IndexConfig) -> sbq.SbqStats:
+    """``stats`` merged with one chunk's statistics (Chan's update)."""
+    dev = preprocess_query(raw_chunk, config.distance_type)
+    return sbq.merge_stats(stats, sbq.train(dev[:, : config.dims_to_index]))
+
+
+def _ingest_chunk(arrays: GraphArrays, raw_chunk: torch.Tensor, stats: sbq.SbqStats,
+                  i0: int, config: IndexConfig) -> GraphArrays:
+    """Normalize, encode and store one chunk at rows [i0, i0 + c), in
+    place."""
+    dev = preprocess_query(raw_chunk, config.distance_type)
+    _store_rows(arrays, dev, stats, slice(i0, i0 + dev.shape[0]), config)
+    return arrays
+
+
+def _ingest_chunked(vectors: np.ndarray, config: IndexConfig, capacity: int,
+                    stats: Optional[sbq.SbqStats], device: torch.device):
+    """Two-pass ingest of a host corpus too large to sit on the device as
+    one float32 tensor beside the store: pass 1 merges each chunk's
+    quantizer statistics (``sbq.merge_stats``; not bit-equal to one
+    batched pass, as in the JAX package), pass 2 normalizes, encodes and
+    stores each chunk.  One chunk of input is on the device at a time."""
+    n, d = vectors.shape
+    chunk = _ingest_chunk_rows(n, d)
+
+    def on_device(i0):
+        return torch.from_numpy(np.ascontiguousarray(vectors[i0 : i0 + chunk])).to(device)
+
+    if stats is None:
+        stats = sbq.empty_stats(config.dims_to_index, device)
+        if config.uses_sbq:
+            for i0 in range(0, n, chunk):
+                stats = _train_chunk(stats, on_device(i0), config)
+    arrays = store.empty_arrays(config, capacity, device)
+    for i0 in range(0, n, chunk):
+        arrays = _ingest_chunk(arrays, on_device(i0), stats, i0, config)
     return arrays._replace(count=n), stats
 
 
@@ -233,13 +359,7 @@ def _add_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
     and store at rows [n0, n0 + M) (aminsert's create_node), in place:
     ``arrays`` must be the caller's own tensors, never published ones."""
     m = raw.shape[0]
-    dev = preprocess_query(raw, config.distance_type)
-    arrays.vectors[n0 : n0 + m] = dev.to(arrays.vectors.dtype)
-    if config.uses_sbq:
-        arrays.codes[n0 : n0 + m] = sbq.encode(
-            dev[:, : config.dims_to_index], stats, config.bits_per_dimension
-        )
-    return arrays._replace(count=n0 + m)
+    return _ingest_chunk(arrays, raw, stats, n0, config)._replace(count=n0 + m)
 
 
 def _reuse_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
@@ -249,13 +369,8 @@ def _reuse_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
     side of vacuum).  Stale incoming edges stay: they now lead to the new
     vector.  Writes in place: ``arrays`` must be the caller's own tensors,
     never published ones."""
-    dev = preprocess_query(raw, config.distance_type)
     idx = rows.long()
-    arrays.vectors[idx] = dev.to(arrays.vectors.dtype)
-    if config.uses_sbq:
-        arrays.codes[idx] = sbq.encode(
-            dev[:, : config.dims_to_index], stats, config.bits_per_dimension
-        )
+    _store_rows(arrays, preprocess_query(raw, config.distance_type), stats, idx, config)
     arrays.deleted[idx] = False
     arrays.adjacency[idx] = INVALID_ID
     return arrays
@@ -426,7 +541,10 @@ class DiskannIndex:
         """Build an index over ``vectors`` [N, D] (numpy or a tensor; N may
         be 0, which leaves the index empty and its quantizer untrained).
 
-        Ingest (normalize, train SBQ, encode) in one pass, then waves of
+        Ingest (normalize, train SBQ, encode): in one pass, or, for host
+        input (not a tensor) of more than INGEST_CHUNK_BYTES as float32,
+        in chunks moved to the device one at a time (``_ingest_chunked``,
+        the JAX package's rule).  Then waves of
         up to ``max_wave`` rows, then finalize.  ``initial_wave=None``
         picks the schedule: ``max_wave`` throughout when N >= 2 *
         ``max_wave``, else a geometric ramp from INITIAL_WAVE.
@@ -440,7 +558,11 @@ class DiskannIndex:
         after every wave and around finalize (the refinement passes
         included)."""
         dev = resolve_device(device)
-        vectors = _as_vectors(vectors, dev)
+        host_input = not isinstance(vectors, torch.Tensor)
+        if host_input:
+            vectors = np.asarray(vectors, dtype=np.float32)
+        else:
+            vectors = vectors.to(dev, torch.float32)
         if vectors.ndim != 2:
             raise ValueError("vectors must be [N, D]")
         n, d = vectors.shape
@@ -450,7 +572,6 @@ class DiskannIndex:
             raise ValueError(
                 f"config.num_dimensions={config.num_dimensions} != data dim {d}"
             )
-        store.vector_dtype(config.vector_dtype)  # rejects the int8 tier
         if labels is not None and not config.has_labels:
             raise ValueError("labels passed but config.max_labels_per_vector == 0")
         label_arr = None
@@ -473,8 +594,13 @@ class DiskannIndex:
                      else sbq.empty_stats(config.dims_to_index, dev))
             return cls(config, arrays, stats, external_ids)
         with _full_f32():
-            arrays, stats = _ingest(vectors, config, capacity, sbq_stats)
+            if host_input and n * d * 4 > INGEST_CHUNK_BYTES:
+                arrays, stats = _ingest_chunked(vectors, config, capacity, sbq_stats, dev)
+            else:
+                arrays, stats = _ingest(_as_vectors(vectors, dev), config, capacity,
+                                        sbq_stats)
             del vectors
+            # Labels after whichever ingest ran.
             if label_arr is not None:
                 arrays.node_labels[:n] = torch.from_numpy(label_arr).to(dev)
                 arrays = _register_label_starts(
@@ -652,6 +778,7 @@ class DiskannIndex:
                     adjacency=arrays.adjacency.clone(),
                     deleted=arrays.deleted.clone(),
                     node_labels=arrays.node_labels.clone(),
+                    vec_scales=arrays.vec_scales.clone(),
                 )
             if n_reuse:
                 arrays = _reuse_ingest(
@@ -734,11 +861,14 @@ class DiskannIndex:
 
     def compact(self) -> "DiskannIndex":
         """A new index over the live rows, rebuilt on the same device; the
-        external ids and label sets are kept.  bf16 rows are converted to
-        float32 and rounded to bf16 again on ingest."""
+        external ids and label sets are kept.  bf16 and int8 rows are
+        converted to float32 (int8: times their scale) and stored again on
+        ingest (one more rounding at worst).  The live rows are a device
+        tensor, so the rebuild never takes the chunked ingest."""
         live = np.nonzero(~self._deleted_np[: self.count])[0]
         live_dev = torch.from_numpy(live).to(self.device)
-        vectors = store.dequant_rows(self.arrays.vectors, live_dev).float()
+        vectors = store.dequant_rows(self.arrays.vectors, self.arrays.vec_scales,
+                                     live_dev).float()
         labels = None
         if self.config.has_labels:
             labels = [[int(v) for v in row if v != LABEL_SENTINEL]
@@ -750,8 +880,8 @@ class DiskannIndex:
 
     def save(self, path) -> None:
         """Write the JAX package's checkpoint format (version 3; bf16
-        vectors as their uint16 bit view) to ``path`` (``.npz`` appended
-        when missing), atomically."""
+        vectors as their uint16 bit view, int8 vectors with their scales)
+        to ``path`` (``.npz`` appended when missing), atomically."""
         path = normalize_ckpt_path(path)
         arrays, external_ids = self.arrays, self.external_ids
         host = store.to_host(arrays)
@@ -780,9 +910,9 @@ class DiskannIndex:
     @classmethod
     def load(cls, path, *, device=None) -> "DiskannIndex":
         """Read a checkpoint of either package (versions 1-3), labeled or
-        not, f32 or bf16 (a label table of any grown capacity is kept as
-        saved).  The int8 tier and a mutation journal beside the file are
-        not ported and raise NotImplementedError."""
+        not, f32, bf16 or int8 (a label table of any grown capacity is
+        kept as saved).  A mutation journal beside the file is not ported
+        and raises NotImplementedError."""
         dev = resolve_device(device)
         path = normalize_ckpt_path(path)
         if os.path.isdir(path + ".journal"):
@@ -817,6 +947,7 @@ class DiskannIndex:
         put(arrays.adjacency, z["adjacency"].astype(np.int32))
         put(arrays.node_labels, z["node_labels"].astype(np.int32))
         put(arrays.deleted, z["deleted"].astype(bool))
+        put(arrays.vec_scales, z["vec_scales"].astype(np.float32))
         arrays = _with_label_table(
             arrays._replace(count=n, default_start=int(z["default_start"])),
             z["label_start_keys"].astype(np.int32), z["label_start_ids"].astype(np.int32),
@@ -919,6 +1050,238 @@ class DiskannIndex:
             )
         self.last_search = res
         return ids, dists
+
+    def search_iter(self, query, params: Optional[QueryParams] = None, *,
+                    query_labels: Optional[Iterable[int]] = None,
+                    device=None) -> "SearchIterator":
+        """Streaming relaxed-order search for one query (the
+        TSVResponseIterator analog): ``SearchIterator`` yields (row id,
+        distance) until the graph is exhausted, so the whole table can be
+        scanned through the index even with a small search list.
+        ``query_labels``: one label iterable (the filtered fallback).
+        ``device`` must name the device the index lives on."""
+        dev = resolve_device(device)
+        if dev.type != self.device.type or (
+            dev.index is not None and dev.index != self.device.index
+        ):
+            raise ValueError(f"the index lives on {self.device}, not {dev}")
+        return SearchIterator(self, query, params or QueryParams(), query_labels)
+
+    def exact_distances_for(self, qv: torch.Tensor, ids) -> np.ndarray:
+        """Full-precision distances from a preprocessed query f32[D] to rows
+        ``ids`` (host), as a host array: the iterator's rescore hook."""
+        ids_t = torch.from_numpy(np.asarray(ids, dtype=np.int32)).to(self.device)
+        with _full_f32():
+            d = _exact_distances(self.arrays, qv.to(self.device), ids_t,
+                                 self.config.distance_type)
+        return d.cpu().numpy()
+
+
+class SearchIterator:
+    """Streaming relaxed-order result iterator (TSVResponseIterator,
+    scan.rs:210-305): traversal candidates in approximate order feed a
+    min-heap of ``rescore`` exact distances; each ``next()`` refills the
+    heap, then pops its minimum.
+
+    Unfiltered, the traversal resumes on the device across refills
+    (``graph/iterate.py``): each node is expanded at most once over the
+    iterator's life, so a full-table scan is O(N) visits.  It scans the
+    arrays the index held at construction (rows added later are not
+    streamed); rows deleted later are filtered through the index's host
+    tombstone mirror.  Each refill's window is rescored in one batch; the
+    window grows geometrically (up to 4,096) while refills come back full,
+    and a starved frontier restarts from ``first_unseen``.  A
+    label-filtered iterator re-runs the filtered ``search`` with a doubled
+    L per refill instead.  Streaming statistics (Welford, over the
+    increments of the largest distance seen, StreamingStats in
+    scan.rs:119-160) are kept as the JAX package keeps them."""
+
+    def __init__(self, index: DiskannIndex, query, params: QueryParams,
+                 query_labels: Optional[Iterable[int]] = None):
+        self.index = index
+        self.params = params
+        self.query = np.asarray(query, dtype=np.float32).reshape(1, -1)
+        self.query_labels = [list(query_labels)] if query_labels is not None else None
+        self._returned: set[int] = set()
+        # Everything handed out of a refill: returned, buffered or pending.
+        self._seen: set[int] = set()
+        self._exhausted = False
+        self._l = max(params.search_list_size, 2)
+        self._pending: list[tuple[int, float]] = []  # (id, dist), approximate order
+        self._buffer: list[tuple[float, int]] = []  # exact-distance min-heap
+        self._use_exact = index._needs_rescore(params)
+        self._qv = None
+        self._it_state = None
+        self._it_qv = None
+        self._it_qc = None
+        self._arrays = index.arrays  # the scan's snapshot
+        self._emit_n = _round_up(max(self._l, 64), 64)
+        self.stats_count = 0
+        self.stats_mean = 0.0
+        self.stats_m2 = 0.0
+        self.max_distance = 0.0
+        self._refill_pending()
+
+    def _update_streaming_stats(self, distance: float) -> None:
+        diff = distance - self.max_distance
+        self.max_distance = max(self.max_distance, distance)
+        if diff == 0.0:
+            return
+        self.stats_count += 1
+        delta = diff - self.stats_mean
+        self.stats_mean += delta / self.stats_count
+        self.stats_m2 += delta * (diff - self.stats_mean)
+
+    @property
+    def stats_variance(self) -> float:
+        if self.stats_count < 2:
+            return 0.0
+        return self.stats_m2 / (self.stats_count - 1)
+
+    def _query_vec(self) -> torch.Tensor:
+        """The preprocessed full-width query f32[D], on the index's device."""
+        if self._qv is None:
+            q = torch.from_numpy(self.query).to(self.index.device)
+            self._qv = preprocess_query(q, self.index.config.distance_type)[0]
+        return self._qv
+
+    def _refill_pending(self) -> None:
+        with _full_f32():
+            if self.query_labels is not None:
+                self._refill_restart()
+            else:
+                self._refill_resume()
+
+    def _refill_resume(self) -> None:
+        from .graph import iterate
+
+        index = self.index
+        config = index.config
+        kw = dict(distance_type=config.distance_type, use_codes=config.uses_sbq)
+        if self._it_state is None:
+            qv = self._query_vec()
+            self._it_qv = qv[: config.dims_to_index]
+            if config.uses_sbq:
+                self._it_qc = sbq.encode(self._it_qv[None, :], index.sbq_stats,
+                                         config.bits_per_dimension)[0]
+            else:
+                self._it_qc = torch.zeros((0,), dtype=torch.int32, device=qv.device)
+            start = get_start_ids(self._arrays, 1)[0]
+            self._it_state = iterate.init_state(
+                self._arrays, self._it_qv, self._it_qc, start,
+                frontier=_round_up(max(2 * self._l, 64), 64), **kw,
+            )
+        while not self._pending and not self._exhausted:
+            self._it_state, eids, edists = iterate.iter_step(
+                self._it_state, self._arrays, self._it_qv, self._it_qc,
+                emit_n=self._emit_n, visit_budget=4 * self._emit_n, **kw,
+            )
+            eids = eids.cpu().numpy()
+            edists = edists.cpu().numpy()
+            # Deleted rows are traversed but never returned (scan.rs:231).
+            deleted = index._deleted_np
+            fresh = [(int(i), float(d)) for i, d in zip(eids, edists)
+                     if i >= 0 and not deleted[i]]
+            if fresh and self._use_exact:
+                fresh = self._rescore_batch(fresh, snapshot=True)
+            self._pending = fresh
+            self._seen.update(i for i, _ in fresh)
+            if len(fresh) == self._emit_n:
+                # A deep scan: grow the window geometrically.
+                self._emit_n = min(2 * self._emit_n, 4096)
+            if not fresh:
+                # A starved frontier with live rows unexpanded restarts from
+                # the lowest-id one.
+                nid = iterate.first_unseen(self._it_state, self._arrays)
+                if nid == INVALID_ID:
+                    self._exhausted = True
+                else:
+                    self._it_state = iterate.reseed(
+                        self._it_state, self._arrays, self._it_qv, self._it_qc, nid, **kw)
+
+    def _refill_restart(self) -> None:
+        """Label-filtered fallback: re-run the filtered search with a
+        doubled L until it yields rows not seen yet."""
+        index = self.index
+        n_live = index.num_live
+        while not self._pending and not self._exhausted:
+            k = self._l
+            ids, dists = index.search(
+                self.query, k, QueryParams(search_list_size=self._l, rescore=0),
+                query_labels=self.query_labels, device=index.device,
+            )
+            fresh = [(int(i), float(d)) for i, d in zip(ids[0].cpu().numpy(),
+                                                        dists[0].cpu().numpy())
+                     if i != INVALID_ID and int(i) not in self._seen]
+            if fresh and self._use_exact:
+                fresh = self._rescore_batch(fresh)
+            self._pending = fresh
+            self._seen.update(i for i, _ in fresh)
+            got_all = len(self._seen) >= n_live
+            if not fresh:
+                if self._l >= 4 * max(n_live, 1):
+                    self._exhausted = True
+                self._l *= 2
+            elif not got_all:
+                self._l *= 2  # pre-grow so the next refill reaches deeper
+
+    def _rescore_batch(self, pending: list[tuple[int, float]],
+                       snapshot: bool = False) -> list[tuple[int, float]]:
+        """Exact distances for a whole refill in one batch: against the
+        scan's snapshot on the resume path, through the index's hook on
+        the filtered fallback."""
+        qv = self._query_vec()
+        ids_np = np.asarray([i for i, _ in pending], dtype=np.int32)
+        if snapshot:
+            ids_t = torch.from_numpy(ids_np).to(qv.device)
+            d = _exact_distances(self._arrays, qv, ids_t,
+                                 self.index.config.distance_type).cpu().numpy()
+        else:
+            d = self.index.exact_distances_for(qv, ids_np)
+        return [(int(i), float(x)) for i, x in zip(ids_np, d)]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> tuple[int, float]:
+        # Fill the rescore buffer (resort_size, scan.rs:244-305).
+        target = max(self.params.rescore, 1)
+        while len(self._buffer) < target:
+            if not self._pending:
+                self._refill_pending()
+                if not self._pending:
+                    break
+            nid, exact = self._pending.pop(0)
+            if nid in self._returned:
+                continue
+            if len(self._buffer) > 1:
+                self._update_streaming_stats(exact)
+            heapq.heappush(self._buffer, (exact, nid))
+        if not self._buffer:
+            raise StopIteration
+        d, nid = heapq.heappop(self._buffer)
+        self._returned.add(nid)
+        return nid, d
+
+    @property
+    def total_visits(self) -> int:
+        """Nodes expanded over all refills of the resume path (-1 on the
+        filtered fallback); at most N however deep the scan.  One device
+        read."""
+        if self._it_state is None:
+            return -1
+        return int(self._it_state.n_visits)
+
+    def next_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        ids, dists = [], []
+        for _ in range(n):
+            try:
+                i, d = next(self)
+            except StopIteration:
+                break
+            ids.append(i)
+            dists.append(d)
+        return np.asarray(ids, dtype=np.int32), np.asarray(dists, dtype=np.float32)
 
 
 def from_jax_state(host_arrays, sbq_stats, config, *, external_ids=None,

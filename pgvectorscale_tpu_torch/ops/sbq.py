@@ -57,6 +57,19 @@ def train(vectors: torch.Tensor) -> SbqStats:
     return SbqStats(count=int(count), mean=mean, m2=m2)
 
 
+def merge_stats(a: SbqStats, b: SbqStats) -> SbqStats:
+    """Chan's parallel merge of two (count, mean, M2) triples, in float32
+    as in the JAX package (the chunked ingest's training pass)."""
+    n = a.count + b.count
+    dev = a.mean.device
+    n_f = _f32(max(n, 1), dev)
+    a_f, b_f = _f32(a.count, dev), _f32(b.count, dev)
+    delta = b.mean - a.mean
+    mean = a.mean + delta * (b_f / n_f)
+    m2 = a.m2 + b.m2 + delta * delta * (a_f * b_f / n_f)
+    return SbqStats(count=n, mean=mean, m2=m2)
+
+
 def _pack_bits(bit_array: torch.Tensor, words: int) -> torch.Tensor:
     """Pack [N, num_bits] 0/1 into [N, words] int32 words, LSB-first.
 

@@ -3,9 +3,12 @@
 Every index component is a flat, preallocated structure-of-arrays tensor
 on one device:
 
-- ``vectors``     f32 or bf16[cap, D]  full-precision vectors (the rescore
-                                     tier); ``IndexConfig.vector_dtype``
-                                     "bf16" halves them
+- ``vectors``     f32, bf16 or int8[cap, D]  full-precision vectors (the
+                                     rescore tier); ``IndexConfig.vector_dtype``
+                                     "bf16" halves them, "int8" quarters
+                                     them (per-row symmetric scale)
+- ``vec_scales``  f32[cap]      the int8 tier's per-row dequantization
+                                scale (ones on every other tier)
 - ``codes``       i32[cap, W]   packed SBQ codes; each word is the int32 bit
                                 view of the JAX package's uint32 word
 - ``adjacency``   i32[cap, R]   neighbor ids, ``-1`` padded
@@ -16,8 +19,7 @@ on one device:
   start nodes (graph/start_nodes.rs), LABEL_SENTINEL / INVALID_ID padded
 
 ``count`` and ``default_start`` are host integers: the port runs eagerly,
-so keeping them on the host saves a device read per use.  The int8 vector
-tier is not part of the port yet.
+so keeping them on the host saves a device read per use.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .labels import LABEL_SENTINEL
 
 INVALID_ID = -1
 DEFAULT_LABEL_TABLE_CAPACITY = 1024
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))  # exact in float32
 
 
 class GraphArrays(NamedTuple):
@@ -44,6 +47,7 @@ class GraphArrays(NamedTuple):
     node_labels: torch.Tensor  # i32[cap, Lm]
     label_start_keys: torch.Tensor  # i32[label_cap]
     label_start_ids: torch.Tensor  # i32[label_cap]
+    vec_scales: torch.Tensor  # f32[cap]: the int8 tier's row scales, else ones
 
     @property
     def capacity(self) -> int:
@@ -58,13 +62,13 @@ class GraphArrays(NamedTuple):
         return self.adjacency.device
 
 
-VECTOR_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+VECTOR_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
 
 def vector_dtype(name: str) -> torch.dtype:
-    """The storage dtype of a vector tier; the int8 tier is not ported."""
+    """The storage dtype of a vector tier."""
     if name not in VECTOR_DTYPES:
-        raise NotImplementedError(f"the port stores f32 and bf16 vectors, not {name}")
+        raise ValueError(f"vector_dtype must be one of {sorted(VECTOR_DTYPES)}, not {name}")
     return VECTOR_DTYPES[name]
 
 
@@ -91,6 +95,7 @@ def empty_arrays(
         ),
         label_start_keys=torch.full((DEFAULT_LABEL_TABLE_CAPACITY,), LABEL_SENTINEL, **i32),
         label_start_ids=torch.full((DEFAULT_LABEL_TABLE_CAPACITY,), INVALID_ID, **i32),
+        vec_scales=torch.ones((capacity,), dtype=torch.float32, device=device),
     )
 
 
@@ -110,13 +115,35 @@ def grow(arrays: GraphArrays, new_capacity: int) -> GraphArrays:
         adjacency=pad_rows(arrays.adjacency, INVALID_ID),
         deleted=pad_rows(arrays.deleted, False),
         node_labels=pad_rows(arrays.node_labels, LABEL_SENTINEL),
+        vec_scales=pad_rows(arrays.vec_scales, 1.0),
     )
 
 
-def dequant_rows(vectors: torch.Tensor, idx) -> torch.Tensor:
-    """Row gather in compute form: the rows in their storage dtype (f32
-    or bf16); callers convert to float32 where the JAX package does."""
-    return vectors[idx]
+def quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization (the int8 tier): scale =
+    maxabs/127 (1.0 for an all-zero row, so it dequantizes exactly),
+    value = round-half-even(x / scale) clipped to [-127, 127].  Returns
+    (int8[N, D], f32[N]).  The JAX package quantizes under ``jit``, where
+    XLA turns the division by the constant 127 into a product with its
+    float32 reciprocal; the port takes the same product, so the scales
+    are bit-equal to a JAX index's.  ``x / scale`` is a true division in
+    both."""
+    rows = rows.to(torch.float32)
+    maxabs = torch.amax(torch.abs(rows), dim=-1)
+    scale = torch.where(maxabs > 0, maxabs * _INV_127, torch.ones_like(maxabs))
+    q = torch.clamp(torch.round(rows / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequant_rows(vectors: torch.Tensor, scales: torch.Tensor, idx) -> torch.Tensor:
+    """Row gather in compute form: float32 rows times their scale for the
+    int8 tier; the storage dtype (f32 or bf16) otherwise, which callers
+    convert to float32 where the JAX package does.  ``idx`` is any
+    leading-axis index (tensor, slice) valid for both tensors."""
+    rows = vectors[idx]
+    if vectors.dtype == torch.int8:
+        return rows.to(torch.float32) * scales[idx][..., None]
+    return rows
 
 
 def lookup_label_starts(arrays: GraphArrays, query_labels: torch.Tensor) -> torch.Tensor:
@@ -132,7 +159,7 @@ def lookup_label_starts(arrays: GraphArrays, query_labels: torch.Tensor) -> torc
 class HostArrays(NamedTuple):
     """Host (numpy) copy of the store, in the JAX package's field order.
     bf16 vectors are held as their uint16 bit view (numpy has no
-    bfloat16)."""
+    bfloat16); int8 vectors as int8."""
 
     vectors: np.ndarray
     codes: np.ndarray  # uint32
@@ -147,7 +174,7 @@ class HostArrays(NamedTuple):
 
 
 def vectors_to_host(vectors: torch.Tensor) -> np.ndarray:
-    """f32 rows as float32; bf16 rows as their uint16 bit view."""
+    """f32 and int8 rows as they are; bf16 rows as their uint16 bit view."""
     vectors = vectors.cpu()
     if vectors.dtype == torch.bfloat16:
         return vectors.view(torch.int16).numpy().view(np.uint16)
@@ -165,13 +192,16 @@ def vectors_from_host(vectors, vector_dtype_name: str) -> torch.Tensor:
         if vectors.dtype.itemsize != 2:
             raise ValueError(f"bf16 vectors must be 2-byte words, not {vectors.dtype}")
         return torch.from_numpy(vectors.view(np.int16).copy()).view(torch.bfloat16)
+    if dtype == torch.int8:
+        if vectors.dtype != np.int8:
+            raise ValueError(f"int8 vectors must be int8, not {vectors.dtype}")
+        return torch.from_numpy(vectors.copy())
     if vectors.dtype != np.float32:
         raise ValueError(f"f32 vectors must be float32, not {vectors.dtype}")
     return torch.from_numpy(vectors.copy())
 
 
 def to_host(arrays: GraphArrays) -> HostArrays:
-    cap = arrays.capacity
     return HostArrays(
         vectors=vectors_to_host(arrays.vectors),
         codes=arrays.codes.cpu().numpy().view(np.uint32),
@@ -182,7 +212,7 @@ def to_host(arrays: GraphArrays) -> HostArrays:
         default_start=np.asarray(arrays.default_start, np.int32),
         label_start_keys=arrays.label_start_keys.cpu().numpy(),
         label_start_ids=arrays.label_start_ids.cpu().numpy(),
-        vec_scales=np.ones((cap,), np.float32),
+        vec_scales=arrays.vec_scales.cpu().numpy(),
     )
 
 
@@ -206,4 +236,5 @@ def from_host(host, device, vector_dtype_name: str = "f32") -> GraphArrays:
         node_labels=dev(np.asarray(host.node_labels, np.int32), torch.int32),
         label_start_keys=dev(np.asarray(host.label_start_keys, np.int32), torch.int32),
         label_start_ids=dev(np.asarray(host.label_start_ids, np.int32), torch.int32),
+        vec_scales=dev(np.asarray(host.vec_scales, np.float32), torch.float32),
     )

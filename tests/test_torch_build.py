@@ -22,7 +22,7 @@ from pgvectorscale_tpu import store as jstore
 from pgvectorscale_tpu.config import DistanceType as JaxDistance
 from pgvectorscale_tpu.graph import build as jbuild
 from pgvectorscale_tpu_torch import DiskannIndex, ExactIndex, IndexConfig, from_jax_state
-from pgvectorscale_tpu_torch.config import DistanceType
+from pgvectorscale_tpu_torch.config import DistanceType, StorageLayout
 from pgvectorscale_tpu_torch.graph import build
 from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
 
@@ -203,8 +203,17 @@ def test_build_defaults_to_the_card(monkeypatch):
 
 
 def test_build_rejects_what_the_port_does_not_build():
+    """Every vector tier builds (int8 too, empty or not); labels without
+    label room, rows of the wrong width and an int8 plain index are
+    refused, as the JAX package refuses them."""
     v = np.ones((10, 8), np.float32)
     for n in (10, 0):
-        with pytest.raises(NotImplementedError):
-            DiskannIndex.build(v[:n], IndexConfig(num_dimensions=8, vector_dtype="int8"),
-                               device="cpu")
+        index = DiskannIndex.build(v[:n], IndexConfig(num_dimensions=8, vector_dtype="int8"),
+                                   device="cpu")
+        assert index.arrays.vectors.dtype == torch.int8 and index.count == n
+    with pytest.raises(ValueError, match="max_labels_per_vector"):
+        DiskannIndex.build(v, IndexConfig(num_dimensions=8), labels=[[1]] * 10, device="cpu")
+    with pytest.raises(ValueError, match="num_dimensions"):
+        DiskannIndex.build(v, IndexConfig(num_dimensions=9), device="cpu")
+    with pytest.raises(ValueError, match="requires SBQ"):
+        IndexConfig(num_dimensions=8, vector_dtype="int8", storage_layout=StorageLayout.PLAIN)

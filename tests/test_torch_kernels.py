@@ -338,3 +338,113 @@ def test_labeled_bf16_build_and_filtered_search_on_card_match_cpu(cuda_device, m
     assert (ids >= 0).all()
     for row, ql in zip(ids, qlabels):
         assert all(set(labels[i]) & set(ql) for i in row)
+
+
+def _int8_card_index(cuda_device, n=3000):
+    """An int8 SBQ index (cosine, 1 bit) of n "glove" rows built on the
+    card, and a CPU copy of it (plain versions there)."""
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
+    from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    base, queries = synthetic_corpus("glove", n, 8, seed=6)
+    config = IndexConfig(num_dimensions=base.shape[1], num_bits_per_dimension=1,
+                         vector_dtype="int8")
+    card = DiskannIndex.build(base, config, device=cuda_device)
+    cpu = DiskannIndex(
+        config, card.arrays._replace(**{f: v.cpu() for f, v in zip(card.arrays._fields,
+                                                                     card.arrays)
+                                        if isinstance(v, torch.Tensor)}),
+        sbq.SbqStats(card.sbq_stats.count, card.sbq_stats.mean.cpu(),
+                     card.sbq_stats.m2.cpu()),
+    )
+    return card, cpu, queries
+
+
+@pytest.mark.cuda
+def test_int8_rescore_on_card_matches_cpu(cuda_device):
+    """The int8 rescore (scale factored out, split bf16 query, float32
+    sums) on the card within 1e-5 of the CPU's, for L2, inner product and
+    cosine on unit rows, 1,024 candidates a query."""
+    from pgvectorscale_tpu_torch import index as index_mod
+    from pgvectorscale_tpu_torch import store
+    from pgvectorscale_tpu_torch.config import DistanceType
+
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randn((5000, 96), generator=g)
+    rows = rows / rows.norm(dim=1, keepdim=True)
+    qv = torch.randn((64, 96), generator=g)
+    qv = qv / qv.norm(dim=1, keepdim=True)
+    ids = torch.randint(-1, 5000, (64, 1024), generator=g, dtype=torch.int32)
+    q8, sc = store.quantize_rows(rows)
+    for dt in (DistanceType.L2, DistanceType.INNER_PRODUCT, DistanceType.COSINE):
+        want = index_mod._exact_batch_distances(q8, sc, qv, ids, dt)
+        got = index_mod._exact_batch_distances(
+            q8.to(cuda_device), sc.to(cuda_device), qv.to(cuda_device),
+            ids.to(cuda_device), dt)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_iter_step_on_card_matches_cpu(cuda_device):
+    """Three refills of ``iter_step`` on an int8 SBQ index: the card
+    (edge_gather, one launch a visit) emits the CPU's ids and distances
+    and reaches the CPU's state exactly (Hamming distances are
+    integers)."""
+    from pgvectorscale_tpu_torch.distance import preprocess_query
+    from pgvectorscale_tpu_torch.graph import iterate
+    from pgvectorscale_tpu_torch.graph.search import get_start_ids
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    card, cpu, queries = _int8_card_index(cuda_device)
+    cfg = card.config
+    kw = dict(distance_type=cfg.distance_type, use_codes=True)
+    for qi in range(4):
+        outs = []
+        for index in (card, cpu):
+            dev = index.device
+            qv = preprocess_query(torch.from_numpy(queries[qi : qi + 1]).to(dev),
+                                  cfg.distance_type)[0]
+            qc = sbq.encode(qv[None], index.sbq_stats, cfg.bits_per_dimension)[0]
+            state = iterate.init_state(index.arrays, qv, qc, get_start_ids(index.arrays, 1)[0],
+                                       frontier=256, **kw)
+            before = edge_gather.launches
+            emitted = []
+            for emit_n in (128, 256, 512):
+                state, ids, d = iterate.iter_step(state, index.arrays, qv, qc, emit_n=emit_n,
+                                                  visit_budget=4 * emit_n, **kw)
+                emitted += [ids.cpu(), d.cpu()]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert edge_gather.launches - before >= int(state.n_visits) > 0
+            outs.append(emitted + [t.cpu() for t in state])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_block_masked_iter_step_equals_one_step_at_a_time(cuda_device):
+    """On the card, refills run in blocks of 16 masked steps (the loop
+    condition read once a block) equal refills read after every step."""
+    from pgvectorscale_tpu_torch.distance import preprocess_query
+    from pgvectorscale_tpu_torch.graph import iterate
+    from pgvectorscale_tpu_torch.graph.search import get_start_ids
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    card, _, queries = _int8_card_index(cuda_device)
+    cfg = card.config
+    kw = dict(distance_type=cfg.distance_type, use_codes=True)
+    qv = preprocess_query(torch.from_numpy(queries[:1]).to(cuda_device), cfg.distance_type)[0]
+    qc = sbq.encode(qv[None], card.sbq_stats, cfg.bits_per_dimension)[0]
+    outs = []
+    for block in (16, 1):
+        state = iterate.init_state(card.arrays, qv, qc, get_start_ids(card.arrays, 1)[0],
+                                   frontier=256, **kw)
+        emitted = []
+        for emit_n, budget in ((128, 512), (128, 37), (256, 1024)):
+            state, ids, d = iterate.iter_step(state, card.arrays, qv, qc, emit_n=emit_n,
+                                              visit_budget=budget, step_block=block, **kw)
+            emitted += [ids, d]
+        outs.append(emitted + list(state))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

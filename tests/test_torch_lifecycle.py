@@ -218,14 +218,15 @@ def test_delete_and_compact(churned):
 
 @pytest.mark.parametrize("change", ["int8", "journal", "future", "magic"])
 def test_load_refuses_what_the_port_does_not_read(tmp_path, change):
-    """int8 checkpoints and a journal beside the file are not ported
-    (NotImplementedError); a newer version or a foreign file is refused
-    (ValueError), as the JAX package refuses them."""
+    """A journal beside the file is not ported (NotImplementedError); a
+    newer version, a foreign file or vectors that are not of the
+    checkpoint's tier (f32 rows under an int8 config) are refused
+    (ValueError)."""
     z = _npz(os.path.join(FIXTURES, "checkpoint_v3.npz"))
     cfg = json.loads(bytes(z["config"]).decode())
     err = NotImplementedError
     if change == "int8":
-        cfg["vector_dtype"] = "int8"
+        cfg["vector_dtype"], err = "int8", ValueError
     elif change == "journal":
         os.makedirs(tmp_path / "ckpt.npz.journal")
     elif change == "future":

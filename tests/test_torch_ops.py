@@ -160,11 +160,13 @@ def test_port_imports_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pgvectorscale_tpu)\b(?!_torch)", re.M)
     files = list((ROOT / "pgvectorscale_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_main_path.py"]
     assert len(files) > 10
+    assert ROOT / "pgvectorscale_tpu_torch" / "graph" / "iterate.py" in files
     for f in files:
         assert not pat.search(f.read_text()), f"{f} imports JAX or the JAX package"
     out = subprocess.run(
         [sys.executable, "-c",
-         "import sys, pgvectorscale_tpu_torch, chip_smoke, profile_main_path; "
+         "import sys, pgvectorscale_tpu_torch, pgvectorscale_tpu_torch.graph.iterate, "
+         "chip_smoke, profile_main_path; "
          "print(sorted(m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'jaxlib', 'pgvectorscale_tpu')))"],
         cwd=ROOT, capture_output=True, text=True, timeout=120, check=True,

@@ -98,7 +98,8 @@ def test_unpack_pairwise_and_pair_distances_match_jax(rng, w, bits):
                              default_start=0,
                              node_labels=torch.zeros((cap, 0), dtype=torch.int32),
                              label_start_keys=torch.zeros(0, dtype=torch.int32),
-                             label_start_ids=torch.zeros(0, dtype=torch.int32))
+                             label_start_ids=torch.zeros(0, dtype=torch.int32),
+                             vec_scales=torch.ones(cap))
     got = build.candidate_pair_distances(
         parr, torch.from_numpy(cand), use_codes=True, code_bits=bits,
         distance_type=DistanceType.COSINE, trunc_dims=bits)
