@@ -22,17 +22,23 @@ Phases, each reported on a timestamped, flushed line:
    popcount-dot yardsticks (an fp16 matmul, and cuBLASLt's int8 product
    through ``torch._int_mm`` on bits expanded beforehand; the faster is
    ``library_ms``), the int8 product alone beside them.  The Hamming
-   matrix is also checked on constant codes and misaligned tables.
+   matrix is also checked on constant codes and misaligned tables; the
+   edge gather also at the code widths of 2,000-16,000-dim indexes (W =
+   63, 96, 125, 250, 500), aligned and 4 bytes off a 16-byte boundary.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
-   <= r_max.
+   <= r_max, and prints ``build_stats`` (fails without a wave).
 4. search: 1,024 queries at k=10, L=100, rescore 50 and 300 through
    ``DiskannIndex.search``; QPS, recall@10 against ``ExactIndex``
    (fails below 0.80 at rescore 300) and the edge-gather kernel's
-   launches on this path (fails at 0).
+   launches on this path (fails at 0); one more search inside
+   ``stats.profiler_trace``, whose trace must hold one edge_gather
+   kernel for each launch.
 5. agreement: the beam search on the card equals the same beam search
-   run by the plain versions on the CPU, for 64 queries.
+   run by the plain versions on the CPU, for 64 queries; so do
+   ``last_search_stats`` of ``DiskannIndex.search`` on those queries, and
+   ``estimate_query_cost`` answers "measured".
 6. storage build and search: the same corpus and queries with
    build_distance "storage" (the reference's build: Hamming everywhere);
    the same graph checks and recall floor, and both kernels launched.
@@ -121,8 +127,35 @@ Phases, each reported on a timestamped, flushed line:
    deleted yields every live row once in at most ``count`` visits.
 15. int8 life cycle: phase 7 with ``vector_dtype="int8"`` (the reader's
    arrays it checks include ``vec_scales``).
+16. durable life cycle: a child process on the card (loading phase 1's
+   kernels) builds phase 7's index, calls ``enable_durability``, runs
+   phase 7's adds, delete and reuse add (10 journal records) and kills
+   itself with SIGKILL; ``DiskannIndex.load`` replays the journal (both
+   kernels launched) to phase 7's index after its reuse add: count, live
+   rows, external ids, a checksum of every tensor and the searches at
+   rescore 50 and 300, bit-equal.  Then ``enable_durability`` with
+   ``auto_checkpoint_every`` 8,192 and two adds of 4,096: the journal is
+   empty after the second, and ``load`` gives the same live rows.
+   Seconds of the base checkpoint, each append (MB/s), the replay and the
+   checkpoints.
+17. host graph and tools: on phase 13's 1M adjacency (copied to the host
+   before that index is freed) the native BFS (``native/``, g++) equals
+   the device BFS; with the in-edges of 1,000 seeded rows cleared,
+   ``repair_orphans_host`` leaves no orphan within the degree bound.
+   The CLI, each command a subprocess on the card: ``bench`` at its
+   defaults (100k cohere, 1,000 queries; recall at L=200 at least 0.80),
+   then build / info / search / add / delete / compact / info on 20,000
+   rows (``info``: all reachable, no orphans); the CLI's search ids
+   equal the library's on the same checkpoint.  The debug helpers on phase 3's index (run
+   before it is freed): all reachable, no orphans.
+18. high dim: a 16,000-dim SBQ index (cosine, R=16, L=32, 500-word codes)
+   of 8,192 low-rank rows, max_wave 1,024 (the re-measure's rows: 4.19
+   GB); recall@10 against ``ExactIndex`` at the JAX test's L=50, rescore
+   100 and at L=100, rescore 200 (floor 0.9 there), edge_gather launched
+   at W=500, the peak device memory.
 
-Each path (phases 3-4, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15) is driven with the
+Each path (phases 3-4, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and
+18) is driven with the
 kernels' launch counts set to 0 just before it and read just after; the
 kernels line sums them.  The peak device memory
 (``torch.cuda.max_memory_allocated``) is reset at the start of each
@@ -138,6 +171,7 @@ JSON record, the card's name and power limit, and the result line.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -167,15 +201,19 @@ DEADLINES = {
     "exact add": 270,
     "plain build": 282,
     "plain search": 288,
-    "filtered build": 318,
-    "filtered search": 332,
-    "filtered agreement": 338,
-    "filtered life cycle": 360,
-    "int8 build": 500,
-    "int8 search": 530,
-    "rescore tiers": 540,
-    "stream": 575,
-    "int8 life cycle": 595,
+    "filtered build": 290,
+    "filtered search": 300,
+    "filtered agreement": 305,
+    "filtered life cycle": 320,
+    "int8 build": 400,
+    "int8 search": 420,
+    "rescore tiers": 425,
+    "stream": 450,
+    "int8 life cycle": 460,
+    "durable life cycle": 500,
+    "host graph": 510,
+    "cli": 580,
+    "high dim": 595,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
@@ -247,6 +285,23 @@ TIER_M = 310
 STREAM_QUERIES, STREAM_K, FLAG_SHARE, FLAG_SEED = 16, 10, 0.01, 13
 AGREE_QUERIES, AGREE_REFILLS = 4, 3
 SCAN_N, SCAN_DELETE = 16_384, 0.10
+# Phase 16: the second journal's auto-checkpoint bound (rows), reached by
+# its second add of LC_BATCH rows.
+DUR_AUTO_EVERY = 8192
+# Phase 17: rows whose in-edges are cleared on the 1M adjacency; the CLI's
+# index rows, rows added and external ids deleted.
+ORPHANS = 1000
+CLI_N, CLI_ADD, CLI_DELETE = 20_000, 1000, 10
+# Phase 18: the 16,000-dim index (test_highdim.py's settings), its rows,
+# queries and waves (the re-measure gathers max_wave x C x d x 4 B of
+# rows: 4.19 GB at 1,024, 16.8 GB at the library's 4,096), the recall
+# floor of the JAX test, and the (L, rescore) points searched: the JAX
+# test's, then twice as wide.  The floor holds at the last: the JAX test
+# searches 128 rows with L=50, a beam of 39% of them, and no beam that
+# covers 8,192 rows alike is a query point (tests/test_torch_highdim.py
+# holds the port's 16,000-dim graph and ids equal to the JAX package's).
+HD_N, HD_DIM, HD_QUERIES, HD_MAX_WAVE, HD_MIN_RECALL = 8192, 16_000, 256, 1024, 0.9
+HD_POINTS = ((50, 100), (100, 200))
 
 
 def elapsed() -> float:
@@ -376,48 +431,43 @@ def check_edge_gather(cap_main: int, card: dict) -> dict:
     from pgvectorscale_tpu_torch.ops import edge_gather as eg
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    # (q, e, r_max, w, cap): the search and build shapes of the main path
-    # (timed), then the shapes of the TPU kernel's own tests, then odd W and
-    # W % 4 != 0 (the kernel's 4-byte-load path).
+    # (q, e, r_max, w, cap, offset): the search and build shapes of the
+    # main path (timed), then the shapes of the TPU kernel's own tests, then
+    # odd W and W % 4 != 0 (the kernel's 4-byte-load path), then the code
+    # widths of 2,000-16,000-dim indexes, aligned and 4 bytes past a
+    # 16-byte boundary (``HIGH_DIM_CASES``: 16 and 32 lanes a slot, more
+    # than one pass of a lane's loop).
     shapes = [
-        (1024, 4, 65, 48, cap_main),
-        (4096, 4, 65, 48, cap_main),
-        (256, 1, 65, 8, 4096),
-        (256, 2, 65, 8, 4096),
-        (128, 2, 65, 16, 4096),
-        (128, 2, 65, 32, 4096),
-        (128, 2, 65, 24, 4096),
-        (64, 3, 65, 1, 4096),
-        (64, 2, 65, 25, 4096),
-        (64, 2, 65, 6, 4096),
-    ]
-
-    def rand_i32(shape):
-        return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
-                             device="cuda", generator=g)
+        (1024, 4, 65, 48, cap_main, False),
+        (4096, 4, 65, 48, cap_main, False),
+        (256, 1, 65, 8, 4096, False),
+        (256, 2, 65, 8, 4096, False),
+        (128, 2, 65, 16, 4096, False),
+        (128, 2, 65, 32, 4096, False),
+        (128, 2, 65, 24, 4096, False),
+        (64, 3, 65, 1, 4096, False),
+        (64, 2, 65, 25, 4096, False),
+        (64, 2, 65, 6, 4096, False),
+    ] + [(q, e, r, w, 4096, off) for q, e, r, w, off in eg.HIGH_DIM_CASES]
 
     def rand_ids(cap, shape):
         return torch.randint(0, cap, shape, dtype=torch.int32, device="cuda", generator=g)
 
     max_err = 0.0
     timed = {}
-    for q, e, r, w, cap in shapes:
-        codes = rand_i32((cap, w))
-        adj = rand_ids(cap, (cap, r))
-        adj[torch.rand((cap, r), device="cuda", generator=g) < INVALID_EDGE_SHARE] = -1
-        sel = rand_ids(cap, (q, e))
-        sel[0, 0], sel[-1, -1] = -5, cap + 7  # out-of-range row ids are clamped
-        qc = rand_i32((q, w))
+    for q, e, r, w, cap, offset in shapes:
+        codes, adj, sel, qc = eg.check_tables(q, e, r, w, cap, offset, INVALID_EDGE_SHARE,
+                                              "cuda", g)
         got = eg.hamming_edge_gather(codes, adj, sel, qc)
         want = eg.hamming_edge_gather_plain(codes, adj, sel, qc)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         max_err = max(max_err, err)
         ok = torch.equal(got, want)
-        say(f"  edge_gather Q={q} E={e} R={r} W={w} cap={cap}: "
+        say(f"  edge_gather Q={q} E={e} R={r} W={w} cap={cap}{' offset' if offset else ''}: "
             f"{'equal' if ok else 'DIFFERENT'} (max abs err {err})")
         if not ok:
-            fail(f"edge_gather differs from its plain version at {(q, e, r, w)}")
+            fail(f"edge_gather differs from its plain version at {(q, e, r, w, offset)}")
         if cap == cap_main:
             # One codes table and adjacency of the index's size, 8 frontier
             # draws in turn, as a search meets them.
@@ -815,10 +865,13 @@ def phase_exact(vectors, queries, counts) -> dict:
     return out
 
 
-def phase_life_cycle(vectors, queries, phase: str = "life cycle", **config_kw) -> dict:
+def phase_life_cycle(vectors, queries, phase: str = "life cycle", **config_kw):
     """Build small, stream adds, delete, reuse tombstones, search, save and
     load, compact: the index life cycle in storage mode, 768 wide, with
-    ``IndexConfig(**config_kw)`` (phase 15: the int8 tier)."""
+    ``IndexConfig(**config_kw)`` (phase 15: the int8 tier).  Returns the
+    results and a snapshot of the index after the reuse add (count, live
+    rows, external ids, checksums of its tensors, the searches at rescore
+    50 and 300 on the host), which phase 16's replay must reproduce."""
     import numpy as np
     import torch
 
@@ -863,7 +916,7 @@ def phase_life_cycle(vectors, queries, phase: str = "life cycle", **config_kw) -
     # What a concurrent reader holds: the add must leave it as it was.
     held, held_ext = index.arrays, index.external_ids
     held_ext_copy = held_ext.copy()
-    sums = {f: checksum(v) for f, v in zip(held._fields, held) if isinstance(v, torch.Tensor)}
+    sums = arrays_checksums(index)
     t = elapsed()
     reused = index.add(vectors[pos : pos + LC_REUSE])
     torch.cuda.synchronize()
@@ -894,9 +947,13 @@ def phase_life_cycle(vectors, queries, phase: str = "life cycle", **config_kw) -
     del exact
     qdev = torch.as_tensor(queries).cuda()
     deleted = index.arrays.deleted
+    snap = dict(count=index.count, num_live=index.num_live,
+                external_ids=index.external_ids.copy(), checksums=arrays_checksums(index),
+                searches={})
     for rescore in (50, 300):
         ids, dists = index.search(qdev, 10, QueryParams(search_list_size=100, rescore=rescore))
         torch.cuda.synchronize()
+        snap["searches"][rescore] = (ids.cpu(), dists.cpu())
         if ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all()):
             fail(f"{phase}: search at rescore {rescore} returned bad shape or distances")
         if bool(deleted[ids.clamp_min(0).long()].any()):
@@ -936,7 +993,15 @@ def phase_life_cycle(vectors, queries, phase: str = "life cycle", **config_kw) -
         f"{out['load_s']:.2f}s, searches bit-equal; compact to {compacted.count} rows "
         f"in {out['compact_s']:.2f}s, {check_graph(compacted, phase)}")
     check_deadline(phase)
-    return out
+    return out, snap
+
+
+def arrays_checksums(index) -> dict:
+    """``checksum`` of every tensor of the index's arrays."""
+    import torch
+
+    a = index.arrays
+    return {f: checksum(v) for f, v in zip(a._fields, a) if isinstance(v, torch.Tensor)}
 
 
 def state_on(index, dev):
@@ -1627,6 +1692,498 @@ def phase_stream(index, queries, flag, filtered_gt) -> dict:
     return out
 
 
+def check_build_stats(index, phase: str) -> dict:
+    """``build_stats`` of a fresh build: printed, and at least one wave."""
+    import dataclasses
+
+    st = index.build_stats
+    if st is None or st.num_waves <= 0 or st.num_nodes != index.count:
+        fail(f"{phase}: build_stats {st} lacks its rows or waves")
+    out = {k: v for k, v in dataclasses.asdict(st).items() if k != "started"}
+    say(f"  {phase}: build_stats {out}")
+    return out
+
+
+def check_trace(index, queries) -> dict:
+    """One search at L=100, rescore 50 inside ``stats.profiler_trace``: the
+    trace written into a temporary directory must hold the edge_gather
+    kernel, once for each launch the wrapper counted in that search."""
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.stats import profiler_trace
+
+    qdev = torch.as_tensor(queries).cuda()
+    with tempfile.TemporaryDirectory() as td:
+        before = edge_gather.launches
+        with profiler_trace(td):
+            index.search(qdev, 10, QueryParams(search_list_size=100, rescore=50))
+        launches = edge_gather.launches - before
+        files = list(Path(td).iterdir())
+        events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if "edge_gather" in e.get("name", "")]
+    out = dict(files=len(files), kernel_events=len(kernels), edge_gather_events=len(ours),
+               edge_gather_launches=launches,
+               edge_gather_device_us=sum(float(e.get("dur", 0)) for e in ours),
+               name=ours[0]["name"] if ours else None)
+    say(f"  search trace (stats.profiler_trace): {out}")
+    if not ours or len(ours) != launches:
+        fail(f"the profiler trace holds {len(ours)} edge_gather kernels for {launches} launches")
+    return out
+
+
+def phase_search_stats(index, queries) -> dict:
+    """Phase 5's 64 queries through ``DiskannIndex.search`` (L=100, rescore
+    50) on the card and on a CPU copy of the index (plain versions): equal
+    ``last_search_stats``; ``estimate_query_cost`` answers "measured"."""
+    import dataclasses
+
+    from pgvectorscale_tpu_torch import DiskannIndex, QueryParams
+
+    params = QueryParams(search_list_size=100, rescore=50)
+    index.search(queries[:64], 10, params)
+    card = dataclasses.asdict(index.last_search_stats)
+    estimate = index.estimate_query_cost(params)
+    arrays, stats = state_on(index, "cpu")
+    cpu = DiskannIndex(index.config, arrays, stats)
+    cpu.search(queries[:64], 10, params, device="cpu")
+    plain = dataclasses.asdict(cpu.last_search_stats)
+    say(f"phase 5 search stats: card {card}, CPU plain path {plain}: "
+        f"{'equal' if card == plain else 'DIFFERENT'}; estimate_query_cost {estimate}")
+    if card != plain:
+        fail("the card's last_search_stats differ from the CPU's")
+    if estimate["basis"] != "measured":
+        fail("estimate_query_cost did not use the measured search")
+    return dict(card=card, cpu=plain, estimate=estimate)
+
+
+def phase_debug_helpers(index) -> dict:
+    """Phase 17, the debug helpers on phase 3's index (run before it is
+    freed): every row reachable, no row without an in-edge."""
+    from pgvectorscale_tpu_torch.debug import count_reachable_nodes, degree_histogram
+
+    t = elapsed()
+    out = dict(reachable=count_reachable_nodes(index), degrees=degree_histogram(index))
+    out["seconds"] = elapsed() - t
+    say(f"phase 17 debug helpers on phase 3's index ({index.count} rows): {out}")
+    if out["reachable"] != index.count or out["degrees"]["orphans"] != 0:
+        fail("debug helpers: phase 3's index has unreachable rows or orphans")
+    return out
+
+
+def download_graph(index) -> dict:
+    """Phase 13's adjacency on the host for phase 17, with the device
+    BFS's reachable set and seconds (read before the index is freed)."""
+    import torch
+
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+
+    n = index.count
+    torch.cuda.synchronize()
+    t = elapsed()
+    reach = reachable_on_device(index.arrays)[:n].cpu().numpy()
+    device_bfs_s = elapsed() - t
+    t = elapsed()
+    adj = index.arrays.adjacency[:n].cpu().numpy()
+    say(f"  host copy of phase 13's adjacency: {adj.nbytes} B in {elapsed() - t:.2f}s")
+    return dict(adj=adj, start=int(index.arrays.default_start), device_reach=reach,
+                device_bfs_s=device_bfs_s, r_max=index.config.max_neighbors_during_build)
+
+
+# Phase 16's child: build phase 7's storage index, attach a journal, run
+# phase 7's adds, delete and reuse add, print a JSON line and SIGKILL
+# itself without saving.  argv: repo root, kernel build directory, vectors
+# (.npy), checkpoint path, sizes (JSON).
+_DURABLE_CHILD = r"""
+import json, os, signal, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from pgvectorscale_tpu_torch.ops import _build, edge_gather, hamming_matrix
+for name in ("edge_gather", "hamming_matrix"):
+    _build.load(name, build_dir=sys.argv[2])
+from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, durability
+
+sizes = json.loads(sys.argv[5])
+vectors = np.load(sys.argv[3])
+appends = []
+real_append = durability.MutationJournal._append
+
+def timed_append(self, payload):
+    t = time.perf_counter()
+    real_append(self, payload)
+    appends.append([time.perf_counter() - t, sum(v.nbytes for v in payload.values())])
+
+durability.MutationJournal._append = timed_append
+index = DiskannIndex.build(vectors[: sizes["build"]],
+                           IndexConfig(num_dimensions=vectors.shape[1], build_distance="storage"))
+torch.cuda.synchronize()
+t = time.perf_counter()
+index.enable_durability(sys.argv[4])
+base_s = time.perf_counter() - t
+pos = sizes["build"]
+for _ in range(sizes["batches"]):
+    index.add(vectors[pos : pos + sizes["batch"]])
+    pos += sizes["batch"]
+rng = np.random.default_rng(sizes["seed"])
+index.delete(rng.choice(index.count, int(sizes["delete"] * index.count), replace=False))
+index.add(vectors[pos : pos + sizes["reuse"]])
+torch.cuda.synchronize()
+print(json.dumps({"base_checkpoint_s": base_s, "appends": appends,
+                  "launches": {"edge_gather": edge_gather.launches,
+                               "hamming_matrix": hamming_matrix.launches},
+                  "count": index.count, "num_live": index.num_live}), flush=True)
+os.kill(os.getpid(), signal.SIGKILL)
+"""
+
+
+def phase_durable(vectors, queries, build_dir: Path, snap: dict, counts) -> dict:
+    """Phase 16: a child process on the card runs phase 7's life cycle with
+    a journal attached and is killed; ``DiskannIndex.load`` replays its
+    journal to phase 7's index, bit for bit (``snap``).  Then a second
+    journal with ``auto_checkpoint_every=DUR_AUTO_EVERY`` over two adds
+    of LC_BATCH rows: empty after the second, and ``load`` gives the same
+    live rows."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import DiskannIndex, QueryParams
+
+    phase = "durable life cycle"
+    n_lc = LC_BUILD + LC_BATCH * LC_BATCHES + LC_REUSE
+    sizes = dict(build=LC_BUILD, batch=LC_BATCH, batches=LC_BATCHES, delete=LC_DELETE,
+                 reuse=LC_REUSE, seed=SEED)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        vec_path, path = Path(td) / "rows.npy", Path(td) / "durable.npz"
+        np.save(vec_path, vectors[:n_lc])
+        t = elapsed()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-c", _DURABLE_CHILD, str(ROOT), str(build_dir),
+                 str(vec_path), str(path), json.dumps(sizes)],
+                capture_output=True, text=True,
+                timeout=max(DEADLINES[phase] - elapsed(), 1))
+        except subprocess.TimeoutExpired:
+            fail(f"{phase}: the child did not end before the phase's deadline")
+        out["child_s"] = elapsed() - t
+        if proc.returncode != -9 or not proc.stdout.strip():
+            fail(f"{phase}: the child ended with {proc.returncode}, not SIGKILL: "
+                 f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        records = sorted(os.listdir(f"{path}.journal"))
+        rates = [b / s / 1e6 for s, b in child["appends"]]
+        out.update(child=child, records=len(records),
+                   journal_bytes=sum(os.path.getsize(f"{path}.journal/{r}") for r in records),
+                   append_mb_per_s=rates)
+        say(f"phase 16 {phase}: the child (killed with SIGKILL, {out['child_s']:.2f}s "
+            f"from start to kill) wrote a base checkpoint of {LC_BUILD} rows in "
+            f"{child['base_checkpoint_s']:.2f}s and {len(records)} journal records "
+            f"({out['journal_bytes']} B on disk); appends "
+            f"{[round(s, 3) for s, _ in child['appends']]} s at "
+            f"{[round(r, 1) for r in rates]} MB/s of record arrays; its launches "
+            f"{child['launches']}")
+        if len(records) != LC_BATCHES + 2:
+            fail(f"{phase}: {len(records)} journal records, not {LC_BATCHES + 2}")
+
+        start = counts()
+        torch.cuda.synchronize()
+        t = elapsed()
+        index = DiskannIndex.load(path)
+        torch.cuda.synchronize()
+        out["load_replay_s"] = elapsed() - t
+        out["replay_launches"] = {k: v - start[k] for k, v in counts().items()}
+        qdev = torch.as_tensor(queries).cuda()
+        same = dict(count=index.count == snap["count"], num_live=index.num_live == snap["num_live"],
+                    external_ids=np.array_equal(index.external_ids, snap["external_ids"]),
+                    checksums=arrays_checksums(index) == snap["checksums"])
+        for rescore, (ids, dists) in snap["searches"].items():
+            got_ids, got_d = index.search(qdev, 10, QueryParams(search_list_size=100,
+                                                                rescore=rescore))
+            same[f"search_{rescore}"] = (torch.equal(got_ids.cpu(), ids)
+                                         and torch.equal(got_d.cpu(), dists))
+        out["equal_to_phase_7"] = same
+        say(f"  {phase}: load + replay of {len(records)} records in {out['load_replay_s']:.2f}s, "
+            f"launches in the replay {out['replay_launches']}; against phase 7's index "
+            f"after its reuse add: {same}")
+        if not all(same.values()):
+            fail(f"{phase}: the replayed index differs from phase 7's: {same}")
+        if min(out["replay_launches"].values()) == 0:
+            fail(f"{phase}: the replay did not launch both kernels")
+
+        path2 = Path(td) / "auto.npz"
+        out["checkpoint_rows"] = index.count
+        t = elapsed()
+        index.enable_durability(path2, auto_checkpoint_every=DUR_AUTO_EVERY)
+        out["checkpoint_s"] = elapsed() - t
+        out["checkpoint_bytes"] = path2.stat().st_size
+        ckpt_s = []
+        real_checkpoint = index.checkpoint
+
+        def timed_checkpoint():
+            t0 = elapsed()
+            real_checkpoint()
+            ckpt_s.append(elapsed() - t0)
+
+        index.checkpoint = timed_checkpoint
+        pos = n_lc
+        journal_after = []
+        for _ in range(2):
+            index.add(vectors[pos : pos + LC_BATCH])
+            pos += LC_BATCH
+            journal_after.append(len(index._journal))
+        out.update(auto_checkpoint_s=ckpt_s, journal_after_adds=journal_after,
+                   auto_checkpoint_bytes=path2.stat().st_size)
+        t = elapsed()
+        loaded = DiskannIndex.load(path2)
+        out["load_s"] = elapsed() - t
+        say(f"  {phase}: enable_durability checkpoint of {out['checkpoint_rows']} rows in "
+            f"{out['checkpoint_s']:.2f}s ({out['checkpoint_bytes']} B); journal records after "
+            f"two adds of {LC_BATCH}: {journal_after} (auto_checkpoint_every "
+            f"{DUR_AUTO_EVERY}); auto-checkpoint {[round(x, 2) for x in ckpt_s]} s "
+            f"({out['auto_checkpoint_bytes']} B); load {out['load_s']:.2f}s, live rows "
+            f"{loaded.num_live} (index {index.num_live})")
+        if journal_after != [1, 0] or len(ckpt_s) != 1 or loaded.num_live != index.num_live:
+            fail(f"{phase}: the auto-checkpoint did not consolidate the journal")
+    check_deadline(phase)
+    return out
+
+
+def phase_host_graph(graph: dict) -> dict:
+    """Phase 17, host graph: on phase 13's 1M adjacency the native BFS's
+    reachable set equals the device BFS's; on a copy with the in-edges of
+    ORPHANS seeded rows cleared, ``repair_orphans_host`` (native) leaves
+    no orphan and keeps the degree bound."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import native
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device, repair_orphans_host
+    from pgvectorscale_tpu_torch.store import GraphArrays
+
+    phase = "host graph"
+    if not native.available():
+        fail(f"{phase}: the native host runtime did not build (g++)")
+    adj, start = graph["adj"], graph["start"]
+    n = adj.shape[0]
+    t = elapsed()
+    reach = native.bfs_reachable(adj, start)
+    out = dict(rows=n, native_bfs_s=elapsed() - t, device_bfs_s=graph["device_bfs_s"],
+               equal=bool(np.array_equal(reach, graph["device_reach"])))
+    rng = np.random.default_rng(SEED + 17)
+    victims = rng.choice(np.setdiff1d(np.arange(n), [start]), ORPHANS, replace=False)
+    hit = np.zeros(n + 1, bool)
+    hit[victims] = True
+    cut = adj.copy()
+    cut[hit[np.where(cut >= 0, cut, n)]] = -1
+    out["orphans_before"] = int((~native.bfs_reachable(cut, start)).sum())
+    dev = torch.device("cuda")
+    arrays = GraphArrays(
+        vectors=torch.zeros((n, 0), device=dev), codes=torch.zeros((n, 0), dtype=torch.int32,
+                                                                  device=dev),
+        adjacency=torch.from_numpy(cut).to(dev), deleted=torch.zeros(n, dtype=torch.bool,
+                                                                     device=dev),
+        count=n, default_start=start,
+        node_labels=torch.zeros((n, 0), dtype=torch.int32, device=dev),
+        label_start_keys=torch.zeros(1, dtype=torch.int32, device=dev),
+        label_start_ids=torch.zeros(1, dtype=torch.int32, device=dev),
+        vec_scales=torch.ones(n, device=dev),
+    )
+    torch.cuda.synchronize()
+    t = elapsed()
+    repaired = repair_orphans_host(arrays)
+    torch.cuda.synchronize()
+    out["host_repair_s"] = elapsed() - t
+    out["orphans_after"] = int((~reachable_on_device(repaired)[:n]).sum())
+    out["max_degree"] = int((repaired.adjacency != -1).sum(dim=1).max())
+    say(f"phase 17 {phase}: phase 13's adjacency ({n} rows), native BFS {out['native_bfs_s']:.3f}s vs device "
+        f"scatter BFS {out['device_bfs_s']:.3f}s, reachable sets "
+        f"{'equal' if out['equal'] else 'DIFFERENT'} ({int(reach.sum())} rows); in-edges of "
+        f"{ORPHANS} rows cleared: {out['orphans_before']} orphans, host repair "
+        f"{out['host_repair_s']:.3f}s (download, native repair, upload) -> "
+        f"{out['orphans_after']} orphans, max degree {out['max_degree']} (r_max "
+        f"{graph['r_max']})")
+    if not out["equal"] or out["orphans_before"] < ORPHANS:
+        fail(f"{phase}: the native BFS differs from the device's, or the cut left too few orphans")
+    if out["orphans_after"] or out["max_degree"] > graph["r_max"]:
+        fail(f"{phase}: the host repair left orphans or broke the degree bound")
+    check_deadline(phase)
+    return out
+
+
+def run_cli(*args, phase: str = "cli") -> tuple[list, float]:
+    """``python -m pgvectorscale_tpu_torch.cli <args>`` from the repository
+    root (on the card); its stdout's JSON lines and the seconds it took."""
+    t = elapsed()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "pgvectorscale_tpu_torch.cli", *args],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=max(DEADLINES[phase] - elapsed(), 1))
+    except subprocess.TimeoutExpired:
+        fail(f"{phase}: cli {args[0]} did not end before the phase's deadline")
+    secs = elapsed() - t
+    if proc.returncode != 0:
+        fail(f"{phase}: cli {' '.join(args)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    try:
+        if args[0] == "info":
+            lines = [json.loads(proc.stdout)]
+        else:
+            lines = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
+    except json.JSONDecodeError:
+        fail(f"{phase}: cli {args[0]} printed a line that is not JSON: {proc.stdout[-2000:]}")
+    say(f"  cli {' '.join(a if len(a) < 40 else Path(a).name for a in args)}: {secs:.2f}s, "
+        f"{json.dumps(lines[-1])[:400] if args[0] != 'search' else f'{len(lines)} lines'}")
+    return lines, secs
+
+
+def phase_cli(vectors, queries, build_dir: Path) -> dict:
+    """Phase 17, the CLI, each command a subprocess on the card: ``bench``
+    at its defaults (recall at its widest L at least MIN_RECALL), then
+    build / info / search / add / delete / compact / info on CLI_N rows
+    (``info``: every row reachable, no orphan, both times).  The CLI's
+    search ids equal the library's on the same checkpoint (edge_gather
+    counted here)."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import DiskannIndex, QueryParams
+    from pgvectorscale_tpu_torch.ops import _build
+
+    phase = "cli"
+    # The subprocesses load the kernels from csrc/_build/: put phase 1's
+    # libraries there (same names: a hash of source and flags).
+    copied = []
+    for rec in _build.build(KERNELS, build_dir=build_dir):
+        dst = _build.BUILD_DIR / Path(rec["library"]).name
+        if not dst.exists():
+            shutil.copy2(rec["library"], dst)
+            copied.append(dst)
+    out = {"seconds": {}}
+    try:
+        lines, out["seconds"]["bench"] = run_cli("bench")
+        out["bench"] = lines
+        widest = max(lines, key=lambda r: r["L"])
+        if len(lines) != 3 or widest["recall"] < MIN_RECALL:
+            fail(f"{phase}: bench recall {widest['recall']} at L={widest['L']} is below "
+                 f"{MIN_RECALL} (or not 3 lines)")
+        with tempfile.TemporaryDirectory() as td:
+            base, adds, qs = (Path(td) / f for f in ("base.npy", "add.npy", "q.npy"))
+            idx = Path(td) / "idx.npz"
+            np.save(base, vectors[:CLI_N])
+            np.save(adds, vectors[CLI_N : CLI_N + CLI_ADD])
+            np.save(qs, queries[:64])
+            for cmd in (["build", str(base), "-o", str(idx)], ["info", str(idx)],
+                        ["search", str(idx), str(qs), "--show", "64"],
+                        ["add", str(idx), str(adds)],
+                        ["delete", str(idx), *[str(i) for i in range(0, 10 * CLI_DELETE, 10)]],
+                        ["compact", str(idx)], ["info", str(idx)]):
+                key = cmd[0] if cmd[0] != "info" or "info" not in out else "info_after"
+                lines, out["seconds"][key] = run_cli(*cmd)
+                out[key] = len(lines) if cmd[0] == "search" else lines[-1]
+                if cmd[0] == "info":
+                    info = lines[-1]
+                    if info["reachable"] != info["count"] or info["degrees"]["orphans"]:
+                        fail(f"{phase}: info reports {info['reachable']} of {info['count']} "
+                             f"reachable, {info['degrees']['orphans']} orphans")
+                if cmd[0] == "search":
+                    # The library on the same checkpoint, here.
+                    index = DiskannIndex.load(idx)
+                    ids, _ = index.search(torch.as_tensor(queries[:64]).cuda(), 10,
+                                          QueryParams())
+                    want = index.to_external(ids).tolist()
+                    got = [r["ids"] for r in lines]
+                    out["search_equal_to_library"] = got == want
+                    del index
+            info, after = out["info"], out["info_after"]
+            expect = CLI_N + CLI_ADD - CLI_DELETE
+            say(f"phase 17 cli: bench {out['bench']}; build of {CLI_N} rows, info "
+                f"reachable {info['reachable']}/{info['count']}, search ids equal to the "
+                f"library's: {out['search_equal_to_library']}; after add "
+                f"{CLI_ADD}, delete {CLI_DELETE}, compact: {after['count']} rows, reachable "
+                f"{after['reachable']}, orphans {after['degrees']['orphans']}")
+            if not out["search_equal_to_library"]:
+                fail(f"{phase}: the CLI's search ids differ from the library's")
+            if after["count"] != expect or out["compact"]["after"] != expect:
+                fail(f"{phase}: {after['count']} rows after compact, not {expect}")
+    finally:
+        for dst in copied:
+            dst.unlink(missing_ok=True)
+    check_deadline(phase)
+    return out
+
+
+def phase_high_dim(counts) -> dict:
+    """Phase 18: a 16,000-dim SBQ index (the JAX test's settings: cosine,
+    R=16, L=32; 500-word codes) over HD_N low-rank rows, built with
+    max_wave HD_MAX_WAVE; recall@10 at each HD_POINTS against
+    ``ExactIndex`` (floor HD_MIN_RECALL, the JAX test's, at the last),
+    edge_gather launched at W=500 in each search, the peak device
+    memory."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.graph.build import MAX_OVERFLOW_ROWS, INCOMING_CAP, _build_max_iters
+
+    phase = "high dim"
+    rng = np.random.default_rng(SEED + 18)
+    basis = rng.standard_normal((32, HD_DIM)).astype(np.float32)
+    vectors = rng.standard_normal((HD_N, 32)).astype(np.float32) @ basis
+    queries = rng.standard_normal((HD_QUERIES, 32)).astype(np.float32) @ basis
+    config = IndexConfig(num_dimensions=HD_DIM, distance_type=DistanceType.COSINE,
+                         num_neighbors=16, search_list_size=32)
+    c = _build_max_iters(config.search_list_size)
+    r_max = config.max_neighbors_during_build
+    out = dict(
+        words=config.num_code_words,
+        remeasure_bytes=HD_MAX_WAVE * c * HD_DIM * 4,
+        overflow_prune_bytes_at_most=MAX_OVERFLOW_ROWS * (r_max + INCOMING_CAP) * HD_DIM * 4,
+    )
+    say(f"phase 18 {phase}: {HD_N} x {HD_DIM} low-rank rows, W={config.num_code_words}; "
+        f"max_wave {HD_MAX_WAVE}: the re-measure and the prune gather a wave x C x d x 4 B "
+        f"= {HD_MAX_WAVE} x {c} x {HD_DIM} x 4 = {out['remeasure_bytes']} B of rows (at the "
+        f"library's 4,096: {4096 * c * HD_DIM * 4} B); an overflow prune at most "
+        f"{out['overflow_prune_bytes_at_most']} B")
+    start = counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = elapsed()
+    index = DiskannIndex.build(vectors, config, max_wave=HD_MAX_WAVE)
+    torch.cuda.synchronize()
+    out.update(build_s=elapsed() - t, build_peak_bytes=torch.cuda.max_memory_allocated())
+    out["graph"] = check_graph(index, phase)
+    out["build_launches"] = {k: v - start[k] for k, v in counts().items()}
+    gt = ground_truth(vectors, queries, config)
+    say(f"  {phase}: build {out['build_s']:.2f}s, peak device memory {out['build_peak_bytes']} B, "
+        f"{out['graph']}; launches in the build {out['build_launches']}")
+    qdev = torch.as_tensor(queries).cuda()
+    out["search"] = {}
+    for l, rescore in HD_POINTS:
+        before = counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = elapsed()
+        ids, dists = index.search(qdev, 10, QueryParams(search_list_size=l, rescore=rescore))
+        torch.cuda.synchronize()
+        res = dict(seconds=elapsed() - t, peak_bytes=torch.cuda.max_memory_allocated(),
+                   recall=recall_at_10(ids, gt),
+                   launches={k: v - before[k] for k, v in counts().items()})
+        out["search"][f"L={l} rescore={rescore}"] = res
+        say(f"  {phase}: search of {HD_QUERIES} queries at L={l}, rescore {rescore}: "
+            f"{res['seconds']:.3f}s, recall@10 {res['recall']:.4f}, launches "
+            f"{res['launches']}, peak {res['peak_bytes']} B")
+        if index.arrays.codes.shape[1] != 500 or res["launches"]["edge_gather"] == 0:
+            fail(f"{phase}: edge_gather did not launch on 500-word codes")
+        if not bool(torch.isfinite(dists).all()):
+            fail(f"{phase}: a search returned a distance that is not finite")
+    if res["recall"] < HD_MIN_RECALL:
+        fail(f"{phase}: recall@10 {res['recall']:.4f} at L={l}, rescore {rescore} is below "
+             f"{HD_MIN_RECALL}")
+    check_deadline(phase)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "pgvectorscale_tpu_torch").is_dir():
         print("chip_smoke.py: the pgvectorscale_tpu_torch package is not beside "
@@ -1677,7 +2234,9 @@ def main() -> int:
         in_build = read_counts()
         say(f"phase 3 build: launches {in_build}; peak device memory "
             f"{peaks['exact-prune build']} B")
+        build_stats = check_build_stats(index, "phase 3 build")
         search, peaks["exact-prune search"] = phase_search(index, vectors, queries, "search")
+        trace = check_trace(index, queries)
         paths["exact-prune"] = read_counts()  # the exact-prune path ends here
         eg_build = in_build["edge_gather"]
         eg_all = paths["exact-prune"]["edge_gather"]
@@ -1687,6 +2246,7 @@ def main() -> int:
         if eg_build == 0 or eg_all == eg_build:
             fail("the exact-prune path did not launch the edge_gather kernel")
         phase_agreement(index, queries)
+        search_stats = phase_search_stats(index, queries)
 
         reset_counts()  # the windows path starts here
         windows = phase_windows(index, vectors, queries)
@@ -1694,6 +2254,7 @@ def main() -> int:
         peaks["windows"] = max(w["peak_bytes"] for w in windows.values())
         say(f"phase 5b windows: launches {paths['windows']}; peak device memory of a "
             f"search up to {peaks['windows']} B")
+        debug_helpers = phase_debug_helpers(index)
         del index
         torch.cuda.empty_cache()
 
@@ -1717,7 +2278,7 @@ def main() -> int:
 
         reset_counts()  # the life-cycle path starts here
         torch.cuda.reset_peak_memory_stats()
-        life = phase_life_cycle(vectors, queries)
+        life, life_snap = phase_life_cycle(vectors, queries)
         paths["life cycle"] = read_counts()  # the life-cycle path ends here
         peaks["life cycle"] = torch.cuda.max_memory_allocated()
         say(f"phase 7 life cycle: launches {paths['life cycle']}; peak device memory "
@@ -1811,19 +2372,48 @@ def main() -> int:
         peaks["stream"] = torch.cuda.max_memory_allocated()
         say(f"phase 14 stream: launches {paths['stream']}; peak device memory "
             f"{peaks['stream']} B")
+        graph_1m = download_graph(s_index)
         del s_index
         torch.cuda.empty_cache()
 
         reset_counts()  # the int8 life-cycle path starts here
         torch.cuda.reset_peak_memory_stats()
-        i_life = phase_life_cycle(vectors, queries, phase="int8 life cycle",
-                                  vector_dtype="int8")
+        i_life, _ = phase_life_cycle(vectors, queries, phase="int8 life cycle",
+                                     vector_dtype="int8")
         paths["int8 life cycle"] = read_counts()  # the int8 life cycle ends here
         peaks["int8 life cycle"] = torch.cuda.max_memory_allocated()
         say(f"phase 15 int8 life cycle: launches {paths['int8 life cycle']}; peak device "
             f"memory {peaks['int8 life cycle']} B")
         if min(paths["int8 life cycle"].values()) == 0:
             fail("the int8 life cycle did not launch both kernels")
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the durable life-cycle path starts here
+        torch.cuda.reset_peak_memory_stats()
+        durable = phase_durable(vectors, queries, build_dir, life_snap, read_counts)
+        paths["durable life cycle"] = read_counts()  # the durable life cycle ends here
+        peaks["durable life cycle"] = torch.cuda.max_memory_allocated()
+        say(f"phase 16 durable life cycle: launches {paths['durable life cycle']} "
+            f"({durable['replay_launches']} in the replay); peak device memory "
+            f"{peaks['durable life cycle']} B")
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the host graph and tools path starts here
+        host_graph = phase_host_graph(graph_1m)
+        del graph_1m
+        cli = phase_cli(vectors, queries, build_dir)
+        paths["host graph and tools"] = read_counts()  # the path ends here
+        say(f"phase 17 host graph and tools: launches {paths['host graph and tools']} (the "
+            f"library's search of the CLI's checkpoint; the CLI's subprocesses count their own)")
+        if paths["host graph and tools"]["edge_gather"] == 0:
+            fail("phase 17 did not launch edge_gather")
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the high-dim path starts here
+        high_dim = phase_high_dim(read_counts)
+        paths["high dim"] = read_counts()  # the high-dim path ends here
+        peaks["high dim build"] = high_dim["build_peak_bytes"]
+        say(f"phase 18 high dim: launches {paths['high dim']}")
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 
@@ -1862,6 +2452,9 @@ def main() -> int:
         "filtered": filtered, "filtered_life_cycle": f_life,
         "int8_scale": scale, "rescore_tiers": tiers, "stream": stream,
         "int8_life_cycle": i_life,
+        "build_stats": build_stats, "search_trace": trace, "search_stats": search_stats,
+        "durable_life_cycle": durable, "host_graph": host_graph, "cli": cli,
+        "debug_helpers": debug_helpers, "high_dim": high_dim,
         "elapsed_s": elapsed(),
     }
     say(f"summary {json.dumps(summary)}")

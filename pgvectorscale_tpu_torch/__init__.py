@@ -8,7 +8,7 @@ caller names another device.
 
 from .config import DistanceType, IndexConfig, QueryParams, StorageLayout
 from .exact import ExactIndex
-from .index import DiskannIndex, from_jax_state
+from .index import DiskannIndex, SearchIterator, from_jax_state
 
 __all__ = [
     "DiskannIndex",
@@ -16,6 +16,7 @@ __all__ = [
     "ExactIndex",
     "IndexConfig",
     "QueryParams",
+    "SearchIterator",
     "StorageLayout",
     "from_jax_state",
 ]

@@ -35,6 +35,20 @@ class StorageLayout(enum.IntEnum):
     PLAIN = 0
     SBQ = 2
 
+    @classmethod
+    def from_string(cls, s: str) -> "StorageLayout":
+        """The CLI's ``--storage`` names (the reference's storage_layout
+        option values, and "plain" / "sbq")."""
+        m = {
+            "plain": cls.PLAIN,
+            "memory_optimized": cls.SBQ,
+            "io_optimized": cls.SBQ,
+            "sbq": cls.SBQ,
+        }
+        if s not in m:
+            raise ValueError(f"unknown storage layout {s!r}; expected one of {sorted(m)}")
+        return m[s]
+
 
 # Limits and defaults — match reference values.
 MAX_DIMENSION = 16_000  # build.rs:192-196

@@ -42,8 +42,10 @@ import logging
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from .. import native
 from ..config import DistanceType, IndexConfig
 from ..distance import row_distances
 from ..ops.hamming import hamming_gather
@@ -94,6 +96,9 @@ class BuildContext:
         self.config = config
         self.alphas = alpha_schedule(config.max_alpha)
         self.code_bits = config.dims_to_index * config.bits_per_dimension
+        # The build's stats.WriteStats, when one is attached: insert_wave
+        # counts waves, finalize counts re-pruned rows.
+        self.stats = None
 
 
 def _set_rows(table: torch.Tensor, row_ids: torch.Tensor, rows) -> torch.Tensor:
@@ -538,6 +543,8 @@ def insert_wave(
         brute = False
         prefix = n_real
     use_codes = config.build_traversal_uses_codes
+    if ctx.stats is not None:
+        ctx.stats.num_waves += 1
     return _wave_step(
         arrays, node_ids, prefix,
         None if brute or not use_codes else snap_adjacency,
@@ -567,6 +574,8 @@ def finalize(arrays: GraphArrays, ctx: BuildContext) -> GraphArrays:
     over = (row < arrays.count) & (deg > config.num_neighbors)
     order = torch.sort(torch.where(over, row, _I32_MAX)).values
     n_over = int(over.sum())
+    if ctx.stats is not None:
+        ctx.stats.num_prunes += n_over
     # Batches of PRUNE_BATCH rows; the last one is not padded (padded rows
     # write nothing).
     for i in range(0, n_over, PRUNE_BATCH):
@@ -653,15 +662,97 @@ def repair_orphans_device(arrays: GraphArrays) -> GraphArrays:
 
 
 def repair_orphans(arrays: GraphArrays) -> GraphArrays:
-    """Guarantee every node is reachable from the default start node."""
-    if arrays.count == 0 or arrays.default_start < 0:
+    """Guarantee every node is reachable from the default start node.
+
+    Batched insertion can orphan a node when every row it linked to prunes
+    the backlink away (the reference warns about orphans,
+    graph/mod.rs:706-716, and its tests assert full reachability).  The
+    device repair runs first; if it leaves an orphan, the host repair
+    (``repair_orphans_host``) finishes."""
+    n = arrays.count
+    if n == 0 or arrays.default_start < 0:
         return arrays
-    n_orphans = int((~reachable_on_device(arrays)[: arrays.count]).sum())
+    n_orphans = int((~reachable_on_device(arrays)[:n]).sum())
     if n_orphans == 0:
         return arrays
-    logger.warning("repairing %d orphaned node(s)", n_orphans)
+    logger.warning(
+        "repairing %d orphaned node(s): forcing edges from reachable "
+        "nodes so the full graph stays scannable", n_orphans,
+    )
     arrays = repair_orphans_device(arrays)
-    left = int((~reachable_on_device(arrays)[: arrays.count]).sum())
-    if left:
-        raise RuntimeError(f"orphan repair left {left} unreachable node(s)")
-    return arrays
+    n_orphans = int((~reachable_on_device(arrays)[:n]).sum())
+    if n_orphans == 0:
+        return arrays
+    logger.warning(
+        "device orphan repair left %d orphan(s); falling back to the "
+        "host repair path", n_orphans,
+    )
+    return repair_orphans_host(arrays)
+
+
+def repair_orphans_host(arrays: GraphArrays) -> GraphArrays:
+    """Download ``adjacency[:count]``, give every node unreachable from the
+    default start a forced edge from a reachable host (its own nearest
+    reachable forward neighbour with a free slot first, else the orphan
+    repaired just before it, else a full neighbour or the start, whose
+    last edge is overwritten), and write the rows back as a new tensor.
+    The native runtime does it in C++; without it, the same chain repair
+    runs in NumPy.  Returns ``arrays`` itself when nothing was forced."""
+    n, start = arrays.count, arrays.default_start
+    if n == 0 or start < 0:
+        return arrays
+    adj = np.ascontiguousarray(arrays.adjacency[:n].cpu().numpy(), dtype=np.int32).copy()
+    if native.available():
+        forced = native.repair_orphans_inplace(adj, start)
+    else:
+        forced = _repair_orphans_numpy(adj, start)
+    if forced == 0:
+        return arrays
+    new_adj = arrays.adjacency.clone()
+    new_adj[:n] = torch.from_numpy(adj).to(new_adj.device)
+    return arrays._replace(adjacency=new_adj)
+
+
+def _repair_orphans_numpy(adj: np.ndarray, start: int) -> int:
+    """The native chain repair (``host_graph.cc``) in NumPy, in place;
+    returns the number of forced edges."""
+    r = adj.shape[1]
+    forced = 0
+
+    def free_slot(node):
+        free = np.nonzero(adj[node] == INVALID_ID)[0]
+        return int(free[0]) if free.size else -1
+
+    for _ in range(64):
+        seen = native.bfs_reachable(adj, start)
+        orphans = np.nonzero(~seen)[0]
+        if orphans.size == 0:
+            break
+        progress = False
+        chain_prev = -1
+        for u in orphans:
+            host = host_full = -1
+            for w in adj[u]:
+                w = int(w)
+                if w < 0 or w >= len(seen) or not seen[w]:
+                    continue
+                if free_slot(w) >= 0:
+                    host = w
+                    break
+                if host_full < 0:
+                    host_full = w
+            if host < 0 and chain_prev >= 0 and free_slot(chain_prev) >= 0:
+                host = chain_prev
+            if host < 0:
+                host = host_full if host_full >= 0 else start
+            if host == u:
+                continue
+            slot = free_slot(host)
+            adj[host, slot if slot >= 0 else r - 1] = u
+            seen[u] = True  # the host is reachable, so u now is too
+            chain_prev = int(u)
+            forced += 1
+            progress = True
+        if not progress:
+            break
+    return forced

@@ -16,7 +16,10 @@ bfloat16 (rounded to nearest even from the float32 rows, which the codes
 are encoded from) and converts gathered rows to float32 before each dot;
 the int8 tier stores round-half-even(x / scale) with a per-row scale
 (``store.quantize_rows``) and rescores with the scale factored out of the
-sum (``_exact_batch_distances``).
+sum (``_exact_batch_distances``).  ``enable_durability`` journals every
+later mutation and ``load`` replays the journal (``durability.py``);
+``last_search_stats``, ``build_stats`` and ``estimate_query_cost`` report
+the work done (``stats.py``).
 
 Readers see snapshots, as in the JAX package: ``add`` and ``delete`` never
 write a tensor or host array that ``index.arrays`` or
@@ -40,6 +43,7 @@ import json
 import logging
 import math
 import os
+import time
 from typing import Iterable, Optional
 
 import numpy as np
@@ -59,11 +63,12 @@ from .graph.build import (
     insert_wave,
     repair_orphans,
 )
-from .durability import atomic_write_npz, normalize_ckpt_path
+from .durability import DurableIndexMixin, MutationJournal, atomic_write_npz, normalize_ckpt_path
 from .graph.search import _stable_sort_by, beam_search, get_start_ids
 from .labels import LABEL_SENTINEL, make_label_array, overlaps
 from .ops import sbq
 from .ops.edge_gather import hamming_edge_gather
+from .stats import GreedySearchStats, WriteStats
 from .store import INVALID_ID, GraphArrays
 
 logger = logging.getLogger("pgvectorscale_tpu_torch")
@@ -479,8 +484,12 @@ def _with_label_table(arrays: GraphArrays, keys: np.ndarray, ids: np.ndarray) ->
                            label_start_ids=torch.from_numpy(ids).to(dev))
 
 
-class DiskannIndex:
-    """A StreamingDiskANN index resident in one device's memory."""
+class DiskannIndex(DurableIndexMixin):
+    """A StreamingDiskANN index resident in one device's memory.
+
+    ``enable_durability(path)`` (``durability.py``) attaches a mutation
+    journal: every later ``add``/``delete`` appends its validated host
+    inputs to it before any device write, and ``load(path)`` replays it."""
 
     def __init__(self, config: IndexConfig, arrays: GraphArrays,
                  sbq_stats: sbq.SbqStats, external_ids=None):
@@ -498,6 +507,17 @@ class DiskannIndex:
         # count read it without a device round trip.
         self._deleted_np = arrays.deleted.cpu().numpy().copy()
         self.last_search = None  # SearchResult of the latest search
+        self._last_search_l = 0  # its search list size
+        self.build_stats = None  # stats.WriteStats after build()
+
+    @property
+    def last_search_stats(self) -> Optional[GreedySearchStats]:
+        """Stats of the latest search (GreedySearchStats analog), computed
+        on access from ``last_search``: the search itself reads nothing
+        back for them."""
+        if self.last_search is None:
+            return None
+        return GreedySearchStats.from_search_result(self.last_search)
 
     @property
     def _ctx(self) -> BuildContext:
@@ -556,7 +576,9 @@ class DiskannIndex:
         that many times, each pass followed by a finalize.
         ``progress_callback(phase, done, total)`` is called after ingest,
         after every wave and around finalize (the refinement passes
-        included)."""
+        included).  ``build_stats`` (``stats.WriteStats``) counts the
+        waves and finalize's re-pruned rows and times the inserts and
+        finalize; the build logs its parameters and its end at INFO."""
         dev = resolve_device(device)
         host_input = not isinstance(vectors, torch.Tensor)
         if host_input:
@@ -588,11 +610,20 @@ class DiskannIndex:
         if sbq_stats is not None:
             sbq_stats = _stats_on(sbq_stats, dev)
         capacity = max(_round_up(n, 1024), 1024)
+        # Build-parameter notice (build.rs:307-313).
+        logger.info(
+            "building index: %d vectors x %d dims, storage=%s, "
+            "num_neighbors=%d, search_list_size=%d, max_alpha=%.2f, "
+            "bits/dim=%d",
+            n, d, config.storage_layout.name, config.num_neighbors,
+            config.search_list_size, config.max_alpha,
+            config.bits_per_dimension if config.uses_sbq else 0,
+        )
         if n == 0:
             arrays = store.empty_arrays(config, capacity, dev)
             stats = (sbq_stats if sbq_stats is not None
                      else sbq.empty_stats(config.dims_to_index, dev))
-            return cls(config, arrays, stats, external_ids)
+            return cls(config, arrays, stats, external_ids)._built(WriteStats())
         with _full_f32():
             if host_input and n * d * 4 > INGEST_CHUNK_BYTES:
                 arrays, stats = _ingest_chunked(vectors, config, capacity, sbq_stats, dev)
@@ -606,22 +637,40 @@ class DiskannIndex:
                 arrays = _register_label_starts(
                     arrays, label_arr, np.arange(n, dtype=np.int32))
             index = cls(config, arrays, stats, external_ids)
+            write_stats = WriteStats()
+            index._ctx.stats = write_stats
             if progress_callback:
                 progress_callback("training quantizer", n, n)
+            t = time.perf_counter()
             arrays = index._insert_ids_into_graph(
                 arrays, np.arange(n, dtype=np.int32),
                 initial_wave=initial_wave, max_wave=max_wave,
                 progress_callback=progress_callback,
             )
+            write_stats.insert_s = time.perf_counter() - t
             if progress_callback:
                 progress_callback("finalizing graph", 0, n)
+            t = time.perf_counter()
             arrays = finalize(arrays, index._ctx)
             for _ in range(refine_passes):
                 arrays = finalize(index._refine_pass(arrays), index._ctx)
+            write_stats.finalize_s = time.perf_counter() - t
             index.arrays = arrays
             if progress_callback:
                 progress_callback("finalizing graph", n, n)
-        return index
+        return index._built(write_stats)
+
+    def _built(self, write_stats: WriteStats) -> "DiskannIndex":
+        """Attach the build's stats (later adds keep counting waves into
+        them) and log the build's end."""
+        write_stats.num_nodes = self.count
+        self._ctx.stats = write_stats
+        self.build_stats = write_stats
+        logger.info(
+            "index build complete: %d vectors in %.1fs (%.1f vectors/s)",
+            write_stats.num_nodes, write_stats.elapsed_s, write_stats.nodes_per_sec,
+        )
+        return self
 
     def _insert_ids_into_graph(
         self,
@@ -732,8 +781,13 @@ class DiskannIndex:
         becomes its start node.  Labels are validated before any work.
 
         Everything is built on new tensors and published at the end: the
-        arrays, then the tombstone mirror and the external ids."""
-        vectors = _as_vectors(vectors, self.device)
+        arrays, then the tombstone mirror and the external ids.  With a
+        journal attached, the validated inputs are journaled before any
+        device write (a failure after that leaves the record, as in the
+        JAX package)."""
+        host_vectors = (None if isinstance(vectors, torch.Tensor)
+                        else np.asarray(vectors, dtype=np.float32))
+        vectors = _as_vectors(vectors if host_vectors is None else host_vectors, self.device)
         if vectors.ndim != 2 or vectors.shape[1] != self.config.num_dimensions:
             raise ValueError("vectors must be [M, num_dimensions]")
         m = vectors.shape[0]
@@ -756,6 +810,13 @@ class DiskannIndex:
             external_ids = np.asarray(external_ids, dtype=np.int64)
             if external_ids.shape != (m,):
                 raise ValueError("external_ids must be [M]")
+        # Write-ahead (page.rs:113-124: every reference page write is
+        # WAL-logged first); replaying the same inputs is deterministic.
+        if self._journal is not None:
+            self._journal.append_add(
+                host_vectors if host_vectors is not None else vectors.cpu().numpy(),
+                external_ids, label_arr,
+            )
 
         arrays = self.arrays
         n0 = arrays.count
@@ -822,6 +883,7 @@ class DiskannIndex:
         self.arrays = arrays
         self._deleted_np = deleted_np
         self.external_ids = ext
+        self._after_durable_mutation(m)
         return np.concatenate([reuse_rows, fresh_ids])
 
     def delete(self, ids) -> None:
@@ -835,6 +897,8 @@ class DiskannIndex:
             return
         if (ids < 0).any() or (ids >= self.count).any():
             raise ValueError("delete ids out of range")
+        if self._journal is not None:  # write-ahead, as in add
+            self._journal.append_delete(ids)
         arrays = self.arrays
         deleted = arrays.deleted.clone()
         deleted[torch.from_numpy(ids).to(self.device).long()] = True
@@ -842,6 +906,7 @@ class DiskannIndex:
         mirror[ids] = True
         self.arrays = arrays._replace(deleted=deleted)
         self._deleted_np = mirror
+        self._after_durable_mutation(len(ids))
 
     def delete_external(self, external_ids) -> None:
         """Tombstone the rows that carry any of ``external_ids``."""
@@ -881,7 +946,8 @@ class DiskannIndex:
     def save(self, path) -> None:
         """Write the JAX package's checkpoint format (version 3; bf16
         vectors as their uint16 bit view, int8 vectors with their scales)
-        to ``path`` (``.npz`` appended when missing), atomically."""
+        to ``path`` (``.npz`` appended when missing), atomically.  Saving
+        to the durability path truncates the journal."""
         path = normalize_ckpt_path(path)
         arrays, external_ids = self.arrays, self.external_ids
         host = store.to_host(arrays)
@@ -906,19 +972,20 @@ class DiskannIndex:
             sbq_m2=self.sbq_stats.m2.cpu().numpy(),
             external_ids=external_ids,
         ))
+        if self._journal is not None and path == self._dur_path:
+            self._journal.truncate()
+            self._dur_pending = 0
 
     @classmethod
     def load(cls, path, *, device=None) -> "DiskannIndex":
         """Read a checkpoint of either package (versions 1-3), labeled or
         not, f32, bf16 or int8 (a label table of any grown capacity is
-        kept as saved).  A mutation journal beside the file is not ported
-        and raises NotImplementedError."""
+        kept as saved), then replay the mutation journal beside it, if
+        any, written by either package (crash recovery, the WAL-redo
+        analog): each record goes through ``add``/``delete``.  The loaded
+        index has no journal attached."""
         dev = resolve_device(device)
         path = normalize_ckpt_path(path)
-        if os.path.isdir(path + ".journal"):
-            raise NotImplementedError(
-                "the port does not replay a mutation journal yet"
-            )
         with np.load(path) as z:
             if int(z["magic"]) != CHECKPOINT_MAGIC:
                 raise ValueError("not a pgvectorscale_tpu checkpoint")
@@ -957,7 +1024,22 @@ class DiskannIndex:
             mean=torch.from_numpy(z["sbq_mean"].astype(np.float32)).to(dev),
             m2=torch.from_numpy(z["sbq_m2"].astype(np.float32)).to(dev),
         )
-        return cls(config, arrays, stats, z["external_ids"])
+        index = cls(config, arrays, stats, z["external_ids"])
+        if os.path.isdir(path + ".journal"):
+            for rec in MutationJournal(path).records():
+                op = bytes(rec["op"]).decode()
+                if op == "add":
+                    labels = None
+                    if "labels" in rec:
+                        labels = [[int(v) for v in row if v != LABEL_SENTINEL]
+                                  for row in rec["labels"]]
+                    index.add(rec["vectors"], labels=labels,
+                              external_ids=rec["external_ids"])
+                elif op == "delete":
+                    index.delete(rec["ids"])
+                else:
+                    raise ValueError(f"unknown journal op {op!r}")
+        return index
 
     def _needs_rescore(self, params: QueryParams) -> bool:
         """SBQ rescores whenever rescore > 0; plain storage only when the
@@ -1049,7 +1131,40 @@ class DiskannIndex:
                 query_labels=ql,
             )
         self.last_search = res
+        self._last_search_l = l
+        if logger.isEnabledFor(logging.DEBUG):
+            # Opt-in per-query stats dump (amendscan debug1, scan.rs:439-476).
+            logger.debug("query stats: %s", self.last_search_stats)
         return ids, dists
+
+    def estimate_query_cost(self, params: Optional[QueryParams] = None) -> dict:
+        """Per-query cost estimate (amcostestimate analog,
+        cost_estimate.rs:6-50).  After a search on this index: the last
+        batch's mean visits and comparisons, scaled by the requested
+        search list size over the measured one ("measured").  On a cold
+        index: about 1.2 visits a beam slot, R comparisons a visit
+        ("model")."""
+        params = params or QueryParams()
+        l = params.search_list_size
+        stats = self.last_search_stats
+        if stats is not None and stats.num_queries > 0 and stats.total_visits:
+            scale = l / max(self._last_search_l, 1)
+            expected_visits = int(stats.total_visits / stats.num_queries * scale)
+            expected_comps = int(
+                stats.total_distance_comparisons / stats.num_queries * scale)
+            basis = "measured"
+        else:
+            expected_visits = min(int(1.2 * l), max(self.num_live, 1))
+            expected_comps = expected_visits * self.config.num_neighbors
+            basis = "model"
+        return {
+            "expected_node_visits": expected_visits,
+            "expected_distance_comparisons": expected_comps,
+            "expected_full_precision_comparisons": params.rescore
+            + (0 if params.rescore == 0 else 10),
+            "estimated_rows": max(self.num_live // 100, 1),
+            "basis": basis,
+        }
 
     def search_iter(self, query, params: Optional[QueryParams] = None, *,
                     query_labels: Optional[Iterable[int]] = None,

@@ -132,6 +132,39 @@ def _kernel():
     return fn
 
 
+# The high-dimension cases the kernel is held to on the card, (q, e, r, w,
+# offset): the code widths of 2,000-, 3,072-, 4,000-, 8,000- and
+# 16,000-dim indexes at the bits a dimension that IndexConfig picks (1 bit
+# from 900 dims: 63, 96, 125, 250 and 500 words; 16 or 32 lanes a slot),
+# R = 21 (num_neighbors 16), each with 16-byte aligned tables (16-byte
+# loads where W % 4 == 0) and with tables that start 4 bytes past a
+# 16-byte boundary ("offset": 4-byte loads; at W = 250 and 500 a lane
+# takes more than one pass over its chunks).
+HIGH_DIM_CASES = [(64, 2, 21, w, offset) for w in (63, 96, 125, 250, 500)
+                  for offset in (False, True)]
+
+
+def check_tables(q: int, e: int, r: int, w: int, cap: int, offset: bool, invalid_share: float,
+                 device, generator=None):
+    """Random inputs of one kernel check: (codes [cap, W], adjacency
+    [cap, R] with ``invalid_share`` of the slots INVALID_ID, sel [Q, E]
+    with an out-of-range id at each end, query_codes [Q, W]).  ``offset``
+    starts both code tables 4 bytes past a 16-byte boundary."""
+    def rand_i32(rows):
+        if offset:
+            return torch.randint(-2**31, 2**31 - 1, (rows * w + 1,), dtype=torch.int32,
+                                 device=device, generator=generator)[1:].view(rows, w)
+        return torch.randint(-2**31, 2**31 - 1, (rows, w), dtype=torch.int32,
+                             device=device, generator=generator)
+
+    codes = rand_i32(cap)
+    adj = torch.randint(0, cap, (cap, r), dtype=torch.int32, device=device, generator=generator)
+    adj[torch.rand((cap, r), device=device, generator=generator) < invalid_share] = -1
+    sel = torch.randint(0, cap, (q, e), dtype=torch.int32, device=device, generator=generator)
+    sel[0, 0], sel[-1, -1] = -5, cap + 7  # out-of-range row ids are clamped
+    return codes, adj, sel, rand_i32(q)
+
+
 def bound_bytes(q: int, e: int, r_max: int, w: int, sel_rows: int,
                 nbr_rows: int) -> int:
     """Bytes the function must move from device memory: the R adjacency

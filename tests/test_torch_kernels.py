@@ -137,33 +137,39 @@ def test_hamming_matrix_kernel_matches_plain_on_card(cuda_device, q, n, w, fill)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "q,e,r,w", [(1024, 4, 65, 48), (256, 1, 65, 8), (128, 2, 65, 16),
-                (128, 2, 65, 32), (128, 2, 65, 24),
-                # 4-byte loads: odd W, W % 4 != 0, and W past 4 chunks a
-                # lane at 32 lanes a neighbour.
-                (64, 3, 65, 1), (64, 2, 65, 25), (64, 2, 65, 6), (32, 2, 7, 1001),
-                # 16-byte loads past 4 chunks a lane at 32 lanes.
-                (32, 2, 7, 1000)]
+    "q,e,r,w,offset", [(1024, 4, 65, 48, False), (256, 1, 65, 8, False),
+                       (128, 2, 65, 16, False), (128, 2, 65, 32, False),
+                       (128, 2, 65, 24, False),
+                       # 4-byte loads: odd W, W % 4 != 0, and W past 4 chunks
+                       # a lane at 32 lanes a neighbour.
+                       (64, 3, 65, 1, False), (64, 2, 65, 25, False),
+                       (64, 2, 65, 6, False), (32, 2, 7, 1001, False),
+                       # 16-byte loads past 4 chunks a lane at 32 lanes.
+                       (32, 2, 7, 1000, False)] + edge_gather.HIGH_DIM_CASES
 )
-def test_edge_gather_kernel_matches_plain_on_card(cuda_device, q, e, r, w):
+def test_edge_gather_kernel_matches_plain_on_card(cuda_device, q, e, r, w, offset):
     """On the card the kernel launches and equals its plain version, with
-    about a quarter of the edges invalid and out-of-range row ids."""
+    about a quarter of the edges invalid and out-of-range row ids; also at
+    the code widths of 2,000-16,000-dim indexes (16 and 32 lanes a slot,
+    more than one pass of a lane's loop), aligned and misaligned."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
-    cap = 4096
-    codes = torch.randint(-2**31, 2**31 - 1, (cap, w), dtype=torch.int32,
-                          device=cuda_device, generator=g)
-    adj = torch.randint(0, cap, (cap, r), dtype=torch.int32, device=cuda_device,
-                        generator=g)
-    adj[torch.rand((cap, r), device=cuda_device, generator=g) < 0.25] = -1
-    sel = torch.randint(0, cap, (q, e), dtype=torch.int32, device=cuda_device, generator=g)
-    qc = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
-                       device=cuda_device, generator=g)
-    sel[0, 0], sel[-1, -1] = -5, cap + 7  # out-of-range ids are clamped
+    codes, adj, sel, qc = edge_gather.check_tables(q, e, r, w, 4096, offset, 0.25,
+                                                   cuda_device, g)
     before = edge_gather.launches
     got = edge_gather.hamming_edge_gather(codes, adj, sel, qc)
     torch.cuda.synchronize()
     assert edge_gather.launches == before + 1
     assert torch.equal(got, edge_gather.hamming_edge_gather_plain(codes, adj, sel, qc))
+
+
+def test_check_tables_offset_views():
+    """The high-dimension check inputs: contiguous tables, the "offset"
+    ones 4 bytes past a 16-byte boundary (the kernel's 4-byte-load path)."""
+    for q, e, r, w, offset in edge_gather.HIGH_DIM_CASES:
+        codes, adj, sel, qc = edge_gather.check_tables(q, e, r, w, 256, offset, 0.25, "cpu")
+        assert codes.is_contiguous() and qc.is_contiguous() and codes.shape == (256, w)
+        assert (codes.data_ptr() % 16 == 4) == offset and (qc.data_ptr() % 16 == 4) == offset
+        assert edge_gather.hamming_edge_gather(codes, adj, sel, qc).shape == (q, e * r)
 
 
 @pytest.mark.cuda

@@ -218,13 +218,13 @@ def test_delete_and_compact(churned):
 
 @pytest.mark.parametrize("change", ["int8", "journal", "future", "magic"])
 def test_load_refuses_what_the_port_does_not_read(tmp_path, change):
-    """A journal beside the file is not ported (NotImplementedError); a
-    newer version, a foreign file or vectors that are not of the
+    """A newer version, a foreign file or vectors that are not of the
     checkpoint's tier (f32 rows under an int8 config) are refused
-    (ValueError)."""
+    (ValueError).  A journal beside the file is replayed: an empty one
+    gives the plain load's index."""
     z = _npz(os.path.join(FIXTURES, "checkpoint_v3.npz"))
     cfg = json.loads(bytes(z["config"]).decode())
-    err = NotImplementedError
+    err = None
     if change == "int8":
         cfg["vector_dtype"], err = "int8", ValueError
     elif change == "journal":
@@ -235,6 +235,15 @@ def test_load_refuses_what_the_port_does_not_read(tmp_path, change):
         z["magic"], err = np.int64(0x1234), ValueError
     z["config"] = np.frombuffer(json.dumps(cfg).encode(), dtype=np.uint8)
     np.savez_compressed(tmp_path / "ckpt.npz", **z)
+    if err is None:
+        got = DiskannIndex.load(tmp_path / "ckpt.npz", device="cpu")
+        want = DiskannIndex.load(os.path.join(FIXTURES, "checkpoint_v3.npz"), device="cpu")
+        assert got._journal is None and got.count == want.count == 64
+        for f in got.arrays._fields:
+            a, b = getattr(got.arrays, f), getattr(want.arrays, f)
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f
+        np.testing.assert_array_equal(got.external_ids, want.external_ids)
+        return
     with pytest.raises(err):
         DiskannIndex.load(tmp_path / "ckpt.npz", device="cpu")
 

@@ -154,18 +154,26 @@ def test_edge_gather_plain_matches_pallas(rng, q, e, r, w):
 
 
 def test_port_imports_no_jax():
-    """Neither the package nor the card scripts (chip_smoke.py,
-    profile_main_path.py) name JAX or the JAX package, and importing the
-    package loads no JAX module."""
+    """Neither the package (its CLI, native runtime, durability, stats,
+    debug, brute-force and utils modules included) nor the card scripts
+    (chip_smoke.py, profile_main_path.py) name JAX or the JAX package, and
+    importing them loads no JAX module."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pgvectorscale_tpu)\b(?!_torch)", re.M)
     files = list((ROOT / "pgvectorscale_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profile_main_path.py"]
     assert len(files) > 10
-    assert ROOT / "pgvectorscale_tpu_torch" / "graph" / "iterate.py" in files
+    pkg = ROOT / "pgvectorscale_tpu_torch"
+    for rel in ("graph/iterate.py", "durability.py", "stats.py", "debug.py", "cli.py",
+                "native/__init__.py", "ops/bruteforce.py", "utils/__init__.py"):
+        assert pkg / rel in files, rel
     for f in files:
         assert not pat.search(f.read_text()), f"{f} imports JAX or the JAX package"
     out = subprocess.run(
         [sys.executable, "-c",
          "import sys, pgvectorscale_tpu_torch, pgvectorscale_tpu_torch.graph.iterate, "
+         "pgvectorscale_tpu_torch.cli, pgvectorscale_tpu_torch.native, "
+         "pgvectorscale_tpu_torch.debug, pgvectorscale_tpu_torch.stats, "
+         "pgvectorscale_tpu_torch.durability, pgvectorscale_tpu_torch.ops.bruteforce, "
+         "pgvectorscale_tpu_torch.utils, "
          "chip_smoke, profile_main_path; "
          "print(sorted(m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'jaxlib', 'pgvectorscale_tpu')))"],
