@@ -116,15 +116,16 @@ Phases, each reported on a timestamped, flushed line:
    one's byte bound; the int8 : f32 ratio.
 14. stream, on phase 13's index: ``WHERE flag ORDER BY emb <=> q LIMIT 10``
    post-filtered through ``search_iter`` (reference query defaults,
-   L=100, rescore 50), ``flag`` a seeded column true on 1% of rows; 16
+   L=100, rescore 50), ``flag`` a seeded column true on 1% of rows; 8
    queries each pull until 10 rows pass.  Hard checks: no id twice in a
    stream, no deleted id, each yielded distance within 1e-5 of the int8
    exact rescore of its id.  Recall@10 against the filtered exact top-10,
    rows pulled, visits (``total_visits``), microseconds per visit and
    edge_gather launches per visit.  Then ``iter_step`` on the card emits
    the CPU plain path's ids over 3 refills for 4 queries (a CPU copy of
-   the index), and a full-table scan of a 16,384-row int8 index with 10%
-   deleted yields every live row once in at most ``count`` visits.
+   the index), and a full-table scan of a 4,096-row int8 index with 10%
+   deleted yields every live row once in at most
+   ``count`` visits.
 15. int8 life cycle: phase 7 with ``vector_dtype="int8"`` (the reader's
    arrays it checks include ``vec_scales``).
 16. durable life cycle: a child process on the card (loading phase 1's
@@ -153,11 +154,32 @@ Phases, each reported on a timestamped, flushed line:
    GB); recall@10 against ``ExactIndex`` at the JAX test's L=50, rescore
    100 and at L=100, rescore 200 (floor 0.9 there), edge_gather launched
    at W=500, the peak device memory.
+19. sharded: ``ShardedDiskannIndex`` on a mesh of SHARDS = 4 positions
+   (``parallel.mesh.make_mesh``: one shard a card on a machine with four
+   cards or more, else all four on cuda:0; the line says how many
+   distinct cards).  1M: phase 13's corpus and config row-sharded (250,000
+   rows a shard), seconds (train + ingest / waves / finalize), peak device
+   memory of each card, every shard's graph checks and every shard
+   tensor on its position's device; scale.py's first two "expand" points,
+   recall@10 of the external ids at no less than phase 13's at the same
+   point minus 0.05, QPS best of 3, edge_gather launched.  Life cycle:
+   phase 7's storage config and sizes on the mesh (the shards' seed waves
+   launch the Hamming matrix), delete through ``delete_external``, the
+   reuse add leaving a reader's shards as they were, searches with no
+   deleted row and the recall floor, a 50-row ``search_iter`` stream,
+   save -> load bit-equal, compact keeping the live external ids,
+   ``create_index`` on the mesh, and ``enable_durability`` over two adds
+   and a delete replayed by ``load`` bit-equal; both kernels launched.
+   Processes: on a machine with two cards or more, two ``nccl`` processes
+   (one card each, the PGVS_TPU_* variables) build and search their
+   shards of the life-cycle rows and must equal the one-process index;
+   with one card it is not run.
 
-Each path (phases 3-4, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and
-18) is driven with the
-kernels' launch counts set to 0 just before it and read just after; the
-kernels line sums them.  The peak device memory
+``python3 chip_smoke.py --only-sharded`` runs phases 0-2, 13 and 19 alone
+(for a machine with several cards).  Each path (phases 3-4, 5b, 6, 7, 8,
+9, 10, 11, 12, 13, 14, 15, 16, 17, 18, and 19's 1M and life cycle) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after; the kernels line sums them.  The peak device memory
 (``torch.cuda.max_memory_allocated``) is reset at the start of each
 build, each search, each add and the life cycle, and read at its end; the
 summary line carries it.
@@ -170,6 +192,7 @@ JSON record, the card's name and power limit, and the result line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -205,15 +228,19 @@ DEADLINES = {
     "filtered search": 300,
     "filtered agreement": 305,
     "filtered life cycle": 320,
-    "int8 build": 400,
-    "int8 search": 420,
-    "rescore tiers": 425,
-    "stream": 450,
-    "int8 life cycle": 460,
-    "durable life cycle": 500,
-    "host graph": 510,
-    "cli": 580,
-    "high dim": 595,
+    "int8 build": 360,
+    "int8 search": 375,
+    "rescore tiers": 380,
+    "stream": 405,
+    "int8 life cycle": 415,
+    "durable life cycle": 445,
+    "host graph": 450,
+    "cli": 500,
+    "high dim": 505,
+    "sharded build": 570,
+    "sharded search": 578,
+    "sharded life cycle": 594,
+    "sharded processes": 598,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
@@ -282,9 +309,9 @@ TIER_M = 310
 # Phase 14: queries streamed, rows each must find, the flag column's share
 # and seed; the agreement's queries and refills; the full scan's rows and
 # deleted share.
-STREAM_QUERIES, STREAM_K, FLAG_SHARE, FLAG_SEED = 16, 10, 0.01, 13
+STREAM_QUERIES, STREAM_K, FLAG_SHARE, FLAG_SEED = 8, 10, 0.01, 13
 AGREE_QUERIES, AGREE_REFILLS = 4, 3
-SCAN_N, SCAN_DELETE = 16_384, 0.10
+SCAN_N, SCAN_DELETE = 4096, 0.10
 # Phase 16: the second journal's auto-checkpoint bound (rows), reached by
 # its second add of LC_BATCH rows.
 DUR_AUTO_EVERY = 8192
@@ -302,6 +329,14 @@ CLI_N, CLI_ADD, CLI_DELETE = 20_000, 1000, 10
 # holds the port's 16,000-dim graph and ids equal to the JAX package's).
 HD_N, HD_DIM, HD_QUERIES, HD_MAX_WAVE, HD_MIN_RECALL = 8192, 16_000, 256, 1024, 0.9
 HD_POINTS = ((50, 100), (100, 200))
+# Phase 19: the mesh's positions (one shard a card on a machine with
+# SHARDS cards or more, else all on cuda:0), scale.py's first two "expand"
+# points, the recall margin against phase 13's one-device index
+# (tests/test_sharded.py's), and the rows the life cycle's stream pulls.
+SHARDS = 4
+SHARD_POINTS = SCALE_POINTS[:2]
+SHARD_RECALL_MARGIN = 0.05
+SHARD_STREAM = 50
 
 
 def elapsed() -> float:
@@ -1421,7 +1456,8 @@ def scale_oracles(vectors, queries, flag, index) -> dict:
 def phase_scale(counts):
     """Phase 13: benchmarks/scale.py's int8 deployment at SCALE_N rows
     through the chunked ingest, its oracles and its five search points.
-    Returns (index, corpus, queries, flag, filtered top-10, results)."""
+    Returns (index, corpus, queries, flag, filtered top-10, exact top-10,
+    results)."""
     import numpy as np
     import torch
 
@@ -1491,7 +1527,7 @@ def phase_scale(counts):
     name = "{3} L={0} rescore={1} E={2} visit_factor={4}".format(*widest)
     if out["search"][name]["recall"] < SCALE_MIN_RECALL:
         fail(f"int8 search: recall@10 at {name} is below {SCALE_MIN_RECALL}")
-    return index, queries, flag, oracles["filtered_gt"], out
+    return index, vectors, queries, flag, oracles["filtered_gt"], oracles["gt"], out
 
 
 def phase_rescore_tiers() -> dict:
@@ -2184,7 +2220,398 @@ def phase_high_dim(counts) -> dict:
     return out
 
 
-def main() -> int:
+def sync_all() -> None:
+    """Synchronize every card (a mesh may span them)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_cards(mesh) -> list:
+    """The distinct cards a mesh's positions are on."""
+    return sorted({str(d) for d in mesh.devices.ravel()})
+
+
+def check_shards(index, label: str) -> str:
+    """Every shard: full reachability from its start node, degree <= r_max,
+    and every tensor on its mesh position's device, or fail."""
+    import torch
+
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+
+    r_max = index.config.max_neighbors_during_build
+    parts = []
+    for p, (arrays, dev) in enumerate(zip(index.shards, index.mesh.devices.ravel())):
+        for f, t in zip(arrays._fields, arrays):
+            if isinstance(t, torch.Tensor) and t.device != dev:
+                fail(f"{label}: shard {p}'s {f} is on {t.device}, its position on {dev}")
+        n = arrays.count
+        reach = int(reachable_on_device(arrays)[:n].sum())
+        deg = (arrays.adjacency[:n] != -1).sum(dim=1)
+        if reach != n:
+            fail(f"{label}: shard {p} has {n - reach} unreachable rows")
+        if int(deg.max()) > r_max:
+            fail(f"{label}: shard {p}'s max degree {int(deg.max())} exceeds r_max {r_max}")
+        parts.append(f"{reach}/{n} reachable, degree {int(deg.min())}..{int(deg.max())}")
+    return (f"every shard's tensors on its position's device; per shard: "
+            f"{'; '.join(parts)} (r_max {r_max})")
+
+
+def phase_sharded_scale(vectors, queries, gt, single: dict, counts) -> dict:
+    """Phase 19, 1M: phase 13's corpus and config row-sharded over SHARDS
+    mesh positions (``ShardedDiskannIndex.build``; one shard a card where
+    there are SHARDS cards, else all on cuda:0): seconds, peak device
+    memory of each card, the shards' graph checks and placement; then
+    SHARD_POINTS, recall@10 of the external ids against phase 13's exact
+    top-10, held at phase 13's single-device recall at the same point
+    minus SHARD_RECALL_MARGIN; QPS best of 3; edge_gather launched."""
+    import torch
+
+    from pgvectorscale_tpu_torch import IndexConfig, QueryParams, ShardedDiskannIndex
+    from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.parallel.mesh import make_mesh
+
+    phase = "sharded build"
+    mesh = make_mesh(SHARDS, axis_name="n")
+    cards = mesh_cards(mesh)
+    out = dict(positions=[str(d) for d in mesh.devices.ravel()], distinct_cards=len(cards))
+    say(f"phase 19 sharded: a mesh of {SHARDS} positions {out['positions']} on "
+        f"{len(cards)} distinct card(s)" + ("" if len(cards) > 1 else
+                                          ": shards run one after another on the card"))
+    config = IndexConfig(num_dimensions=DIM, num_bits_per_dimension=1, vector_dtype="int8")
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    start = counts()
+    sync_all()
+    t = elapsed()
+    index = ShardedDiskannIndex.build(vectors, config, mesh, max_wave=4096)
+    sync_all()
+    total = elapsed() - t
+    bs = index.build_stats
+    out["build_s"] = dict(ingest_s=total - bs.insert_s - bs.finalize_s, waves_s=bs.insert_s,
+                          finalize_s=bs.finalize_s, total_s=total)
+    out["waves"] = bs.num_waves
+    out["build_peak_bytes"] = {c: torch.cuda.max_memory_allocated(c) for c in cards}
+    out["build_launches"] = {k: v - start[k] for k, v in counts().items()}
+    out["graph"] = check_shards(index, phase)
+    say(f"  sharded build: {index.count} rows, {SHARDS} x {index.shard_capacity} slots; "
+        f"train + ingest {out['build_s']['ingest_s']:.2f}s, {bs.num_waves} waves a shard "
+        f"{bs.insert_s:.2f}s, finalize {bs.finalize_s:.2f}s; peak device memory "
+        f"{out['build_peak_bytes']}; launches {out['build_launches']}; {out['graph']}")
+    if out["build_launches"]["edge_gather"] == 0:
+        fail("sharded build: edge_gather did not launch")
+    check_deadline(phase)
+
+    phase = "sharded search"
+    qdev = torch.as_tensor(queries).cuda()
+    out["search"] = {}
+    for l, rescore, e, strategy, vf in SHARD_POINTS:
+        params = QueryParams(search_list_size=l, rescore=rescore, expand=e,
+                             window_strategy=strategy, visit_factor=vf)
+        name = f"{strategy} L={l} rescore={rescore} E={e} visit_factor={vf}"
+        before = edge_gather.launches
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        secs = []
+        for _ in range(3):
+            sync_all()
+            t0 = time.perf_counter()
+            ids, dists = index.search(qdev, 10, params)
+            sync_all()
+            secs.append(time.perf_counter() - t0)
+        ext = torch.from_numpy(index.to_external(ids)).to(qdev.device)
+        s_ext = torch.sort(ext, dim=1).values
+        if (ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all())
+                or bool((ext < 0).any()) or bool((s_ext[:, 1:] == s_ext[:, :-1]).any())):
+            fail(f"{phase}: {name} returned invalid results")
+        recall = recall_at_10(ext, gt)
+        floor = single[name]["recall"] - SHARD_RECALL_MARGIN
+        stats = index.last_search_stats
+        res = dict(recall=recall, floor=floor, single_recall=single[name]["recall"],
+                   qps=NQ / min(secs), seconds=secs,
+                   peak_bytes={c: torch.cuda.max_memory_allocated(c) for c in cards},
+                   edge_gather_launches=edge_gather.launches - before,
+                   iters=stats.iterations, visits_per_query=stats.total_visits / NQ)
+        out["search"][name] = res
+        say(f"  sharded {name}: recall@10 {recall:.4f} (phase 13, one device: "
+            f"{res['single_recall']:.4f}; floor {floor:.4f}), QPS {res['qps']:.1f} (best of "
+            f"{[round(s, 4) for s in secs]} s; phase 13: {single[name]['qps']:.1f}), "
+            f"{res['visits_per_query']:.1f} visits a query over the shards, "
+            f"{res['iters']} iterations at most, edge_gather launches "
+            f"{res['edge_gather_launches']}, peak {res['peak_bytes']}")
+        if res["edge_gather_launches"] == 0:
+            fail(f"{phase}: {name} did not launch edge_gather")
+        if recall < floor:
+            fail(f"{phase}: recall@10 {recall:.4f} at {name} is below phase 13's "
+                 f"{res['single_recall']:.4f} - {SHARD_RECALL_MARGIN}")
+        check_deadline(phase)
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_life_cycle(vectors, queries, counts) -> dict:
+    """Phase 19, life cycle: phase 7's storage config and sizes on the
+    SHARDS-position mesh: build, 8 adds, delete 10% through
+    ``delete_external``, a reuse add onto tombstones (a reader's shards
+    untouched), searches (no deleted row; the recall floor over the live
+    rows), a short ``search_iter`` stream (no id twice, no deleted id),
+    save -> load bit-equal, compact (the live external ids kept); then
+    ``create_index`` on the mesh, whose index takes ``enable_durability``
+    over two adds and a delete that ``load`` replays bit-equal.  Both
+    kernels must launch."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import (ExactIndex, IndexConfig, QueryParams,
+                                         ShardedDiskannIndex, create_index)
+    from pgvectorscale_tpu_torch.parallel.mesh import make_mesh
+
+    phase = "sharded life cycle"
+    mesh = make_mesh(SHARDS, axis_name="n")
+    config = IndexConfig(num_dimensions=DIM, build_distance="storage")
+    out = {}
+    start = counts()
+    t = elapsed()
+    index = ShardedDiskannIndex.build(vectors[:LC_BUILD], config, mesh)
+    sync_all()
+    out["build_s"] = elapsed() - t
+    out["build_launches"] = {k: v - start[k] for k, v in counts().items()}
+    if out["build_launches"]["hamming_matrix"] == 0:
+        fail(f"{phase}: the shards' seed waves did not launch hamming_matrix")
+    pos = LC_BUILD
+    t = elapsed()
+    for _ in range(LC_BATCHES):
+        index.add(vectors[pos : pos + LC_BATCH])
+        pos += LC_BATCH
+        check_deadline(phase)
+    sync_all()
+    out["adds_s"] = elapsed() - t
+    say(f"  {phase}: built {LC_BUILD} rows over {SHARDS} shards in {out['build_s']:.2f}s "
+        f"(launches {out['build_launches']}), added {LC_BATCHES} x {LC_BATCH} in "
+        f"{out['adds_s']:.2f}s; {check_shards(index, phase)}")
+
+    rng = np.random.default_rng(SEED)
+    doomed = rng.choice(np.concatenate(index.external_ids), int(LC_DELETE * index.count),
+                        replace=False)
+    index.delete_external(doomed)
+    count0, deleted0, held = index.count, index.num_deleted, index.shards
+    held_sums = [{f: checksum(v) for f, v in zip(a._fields, a) if isinstance(v, torch.Tensor)}
+                 for a in held]
+    t = elapsed()
+    index.add(vectors[pos : pos + LC_REUSE])
+    sync_all()
+    out["reuse_add_s"] = elapsed() - t
+    pos += LC_REUSE
+    if index.count != count0 or index.num_deleted != deleted0 - LC_REUSE:
+        fail(f"{phase}: the reuse add did not land on {LC_REUSE} tombstones")
+    if index.shards is held or held_sums != [
+            {f: checksum(v) for f, v in zip(a._fields, a) if isinstance(v, torch.Tensor)}
+            for a in held]:
+        fail(f"{phase}: the reuse add wrote a reader's shards or published none")
+    # External ids are the input rows' positions (build and add number
+    # them on).
+    all_ext = np.concatenate([e[~index._deleted_np[s, : len(e)]]
+                              for s, e in enumerate(index.external_ids)])
+    live = np.zeros(pos, dtype=bool)
+    live[all_ext] = True
+    say(f"  {phase}: deleted {len(doomed)} rows by external id, added {LC_REUSE} onto "
+        f"tombstones in {out['reuse_add_s']:.2f}s; a reader's shards unchanged; "
+        f"{index.num_live} live; {check_shards(index, phase)}")
+
+    live_rows = np.nonzero(live)[0]
+    exact = ExactIndex.build(vectors[live_rows], config)
+    gt = torch.from_numpy(live_rows).cuda()[exact.search(queries, 10)[0].long()]
+    del exact
+    qdev = torch.as_tensor(queries).cuda()
+    searches = {}
+    for rescore in (50, 300):
+        ids, dists = index.search(qdev, 10, QueryParams(search_list_size=100, rescore=rescore))
+        ext = index.to_external(ids)
+        if ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all()) or (ext < 0).any():
+            fail(f"{phase}: search at rescore {rescore} returned invalid results")
+        if not live[ext].all():
+            fail(f"{phase}: a search returned a deleted row")
+        searches[rescore] = (ids, dists)
+        out[f"recall_{rescore}"] = recall_at_10(torch.from_numpy(ext).cuda(), gt)
+    say(f"  {phase}: recall@10 over {index.num_live} live rows {out['recall_50']:.4f} "
+        f"(rescore 50), {out['recall_300']:.4f} (rescore 300); no deleted row returned")
+    if out["recall_300"] < MIN_RECALL:
+        fail(f"{phase}: recall@10 at rescore 300 is below {MIN_RECALL}")
+
+    it = index.search_iter(queries[0], QueryParams(search_list_size=100, rescore=50))
+    stream = [g for g, _ in itertools.islice(it, SHARD_STREAM)]
+    s_ext = index.to_external(np.asarray(stream))
+    out["stream_rows"] = len(stream)
+    if len(stream) != SHARD_STREAM or len(set(stream)) != len(stream) or not live[s_ext].all():
+        fail(f"{phase}: the sharded stream yielded an id twice, a deleted id or too few rows")
+
+    with tempfile.TemporaryDirectory() as td:
+        t = elapsed()
+        index.save(Path(td) / "sharded")
+        out["save_s"] = elapsed() - t
+        out["checkpoint_bytes"] = (Path(td) / "sharded.npz").stat().st_size
+        t = elapsed()
+        loaded = ShardedDiskannIndex.load(Path(td) / "sharded", mesh)
+        sync_all()
+        out["load_s"] = elapsed() - t
+        ids2, dists2 = loaded.search(qdev, 10, QueryParams(search_list_size=100, rescore=300))
+        if not (torch.equal(ids2, searches[300][0]) and torch.equal(dists2, searches[300][1])):
+            fail(f"{phase}: the loaded index searches differently")
+        del loaded
+        t = elapsed()
+        compacted = index.compact()
+        sync_all()
+        out["compact_s"] = elapsed() - t
+        if (compacted.count != index.num_live
+                or set(np.concatenate(compacted.external_ids).tolist()) != set(all_ext.tolist())):
+            fail(f"{phase}: compact did not keep the live external ids")
+        say(f"  {phase}: stream of {SHARD_STREAM} rows, no id twice, none deleted; save "
+            f"{out['save_s']:.2f}s ({out['checkpoint_bytes']} B), load {out['load_s']:.2f}s, "
+            f"searches bit-equal; compact to {compacted.count} rows in "
+            f"{out['compact_s']:.2f}s, {check_shards(compacted, phase)}")
+        del index, compacted
+
+        made = create_index(vectors[:LC_BUILD], config, mesh=mesh)
+        if not isinstance(made, ShardedDiskannIndex) or made.mesh is not mesh:
+            fail(f"{phase}: create_index did not build a ShardedDiskannIndex on the mesh")
+        path = Path(td) / "durable"
+        t = elapsed()
+        made.enable_durability(path)
+        out["durable_checkpoint_s"] = elapsed() - t
+        for _ in range(2):
+            made.add(vectors[pos : pos + LC_BATCH])
+            pos += LC_BATCH
+        made.delete_external(np.arange(0, LC_BUILD, 7))
+        records = len(made._journal)
+        t = elapsed()
+        replayed = ShardedDiskannIndex.load(path, mesh)
+        sync_all()
+        out["replay_s"] = elapsed() - t
+        same = dict(count=replayed.count == made.count, num_live=replayed.num_live == made.num_live)
+        for rescore in (50, 300):
+            p = QueryParams(search_list_size=100, rescore=rescore)
+            a, da = replayed.search(qdev, 10, p)
+            b, db = made.search(qdev, 10, p)
+            same[f"search_{rescore}"] = torch.equal(a, b) and torch.equal(da, db)
+        out["replay_equal"] = same
+        say(f"  {phase}: create_index on the mesh built a ShardedDiskannIndex of {LC_BUILD} "
+            f"rows; enable_durability checkpoint {out['durable_checkpoint_s']:.2f}s; "
+            f"{records} journal records (two adds of {LC_BATCH}, a delete) replayed by load "
+            f"in {out['replay_s']:.2f}s: {same}")
+        if records != 3 or not all(same.values()):
+            fail(f"{phase}: the replayed index differs from the live one: {same}")
+        del replayed, made
+    check_deadline(phase)
+    return out
+
+
+_SHARDED_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from pgvectorscale_tpu_torch.ops import _build
+for name in ("edge_gather", "hamming_matrix"):
+    _build.load(name, build_dir=sys.argv[2])
+from pgvectorscale_tpu_torch import IndexConfig, QueryParams, ShardedDiskannIndex
+from pgvectorscale_tpu_torch.parallel import multihost
+
+assert multihost.initialize_from_env()
+rank, size = multihost.world()
+mesh = multihost.global_mesh(axis_name="n")
+vectors = np.load(sys.argv[3])
+queries = np.load(sys.argv[4])
+index = ShardedDiskannIndex.build(vectors, IndexConfig(num_dimensions=vectors.shape[1],
+                                                       build_distance="storage"), mesh)
+assert [s is not None for s in index.shards] == [p == rank for p in range(size)]
+ids, dists = index.search(torch.from_numpy(queries).cuda(), 10,
+                          QueryParams(search_list_size=100, rescore=300))
+np.savez(sys.argv[5] + f"/rank{rank}.npz", ids=ids.cpu().numpy(), dists=dists.cpu().numpy())
+torch.distributed.destroy_process_group()
+print(json.dumps({"rank": rank, "positions": [str(d) for d in mesh.devices.ravel()]}))
+"""
+
+
+def phase_sharded_processes(vectors, queries, build_dir: Path) -> dict:
+    """Phase 19, processes: where the machine has two cards or more, two
+    processes (one card each) join an ``nccl`` world from the PGVS_TPU_*
+    variables, each builds its own shard of phase 19's life-cycle rows
+    and searches; both must return the single-process 2-position index's
+    ids and distances.  With one card it is not run (NCCL takes one rank
+    a card; tests/test_torch_mesh.py runs the path with ``gloo``)."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import IndexConfig, QueryParams, ShardedDiskannIndex
+    from pgvectorscale_tpu_torch.parallel.mesh import make_mesh
+
+    phase = "sharded processes"
+    if torch.cuda.device_count() < 2:
+        say(f"phase 19 {phase}: not run: one card, and NCCL takes one rank a card "
+            f"(tests/test_torch_mesh.py runs four gloo processes on the CPU)")
+        return dict(run=False)
+    n = LC_BUILD + LC_BATCHES * LC_BATCH
+    with tempfile.TemporaryDirectory() as td, socket.socket() as sock:
+        np.save(Path(td) / "rows.npy", vectors[:n])
+        np.save(Path(td) / "queries.npy", queries)
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        procs = []
+        t = elapsed()
+        for rank in range(2):
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES=str(rank),
+                       PGVS_TPU_COORDINATOR=f"localhost:{port}",
+                       PGVS_TPU_PROCESS_ID=str(rank), PGVS_TPU_NUM_PROCESSES="2")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _SHARDED_CHILD, str(ROOT), str(build_dir),
+                 str(Path(td) / "rows.npy"), str(Path(td) / "queries.npy"), td],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            outs = [p.communicate(timeout=max(DEADLINES[phase] - elapsed(), 1))
+                    for p in procs]
+        except subprocess.TimeoutExpired:
+            outs = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if outs is None:
+            fail(f"{phase}: the processes did not end before the phase's deadline")
+        for p, (o, e) in zip(procs, outs):
+            if p.returncode != 0:
+                fail(f"{phase}: a process ended with {p.returncode}: {e[-3000:]}")
+        secs = elapsed() - t
+        mesh = make_mesh(2, axis_name="n")
+        index = ShardedDiskannIndex.build(
+            vectors[:n], IndexConfig(num_dimensions=DIM, build_distance="storage"), mesh)
+        ids, dists = index.search(torch.as_tensor(queries).cuda(), 10,
+                                  QueryParams(search_list_size=100, rescore=300))
+        same = []
+        for rank in range(2):
+            with np.load(Path(td) / f"rank{rank}.npz") as z:
+                same.append(bool(np.array_equal(z["ids"], ids.cpu().numpy())
+                                 and np.array_equal(z["dists"], dists.cpu().numpy())))
+    say(f"phase 19 {phase}: 2 nccl processes, one card each, {n} rows in 2 shards: build + "
+        f"search in {secs:.2f}s (start-up included); each equal to the one-process "
+        f"2-card index: {same}")
+    if not all(same):
+        fail(f"{phase}: the processes' search differs from one process's")
+    check_deadline(phase)
+    return dict(run=True, seconds=secs, equal=same)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only-sharded"]):
+        print("usage: chip_smoke.py [--only-sharded]", file=sys.stderr)
+        return 2
+    only_sharded = bool(argv)
     if not (ROOT / "pgvectorscale_tpu_torch").is_dir():
         print("chip_smoke.py: the pgvectorscale_tpu_torch package is not beside "
               "this script", file=sys.stderr)
@@ -2226,194 +2653,244 @@ def main() -> int:
         vectors, queries = synthetic_corpus("cohere", N, NQ, seed=SEED)
         vectors = np.ascontiguousarray(vectors)
         say(f"  corpus: cohere {vectors.shape} + {queries.shape} queries, seed {SEED}")
+        if only_sharded:
+            reset_counts()  # the int8 scale path starts here
+            s_index, scale_vectors, s_queries, _, _, scale_gt, scale = phase_scale(read_counts)
+            paths["int8 scale"] = read_counts()  # the int8 scale path ends here
+            del s_index
+            torch.cuda.empty_cache()
+            summary = {"card": card, "launches_by_path": paths, "int8_scale": scale}
+        else:
+            reset_counts()  # the exact-prune path starts here
+            torch.cuda.reset_peak_memory_stats()
+            index, build_times = phase_build(vectors, "build", build_distance="exact-prune")
+            peaks["exact-prune build"] = torch.cuda.max_memory_allocated()
+            in_build = read_counts()
+            say(f"phase 3 build: launches {in_build}; peak device memory "
+                f"{peaks['exact-prune build']} B")
+            build_stats = check_build_stats(index, "phase 3 build")
+            search, peaks["exact-prune search"] = phase_search(index, vectors, queries, "search")
+            trace = check_trace(index, queries)
+            paths["exact-prune"] = read_counts()  # the exact-prune path ends here
+            eg_build = in_build["edge_gather"]
+            eg_all = paths["exact-prune"]["edge_gather"]
+            say(f"phase 4 search: recall@10 {search[50]['recall']:.4f} (rescore 50), "
+                f"{search[300]['recall']:.4f} (rescore 300); edge_gather launches "
+                f"{eg_all} ({eg_build} in build, {eg_all - eg_build} in search)")
+            if eg_build == 0 or eg_all == eg_build:
+                fail("the exact-prune path did not launch the edge_gather kernel")
+            phase_agreement(index, queries)
+            search_stats = phase_search_stats(index, queries)
 
-        reset_counts()  # the exact-prune path starts here
-        torch.cuda.reset_peak_memory_stats()
-        index, build_times = phase_build(vectors, "build", build_distance="exact-prune")
-        peaks["exact-prune build"] = torch.cuda.max_memory_allocated()
-        in_build = read_counts()
-        say(f"phase 3 build: launches {in_build}; peak device memory "
-            f"{peaks['exact-prune build']} B")
-        build_stats = check_build_stats(index, "phase 3 build")
-        search, peaks["exact-prune search"] = phase_search(index, vectors, queries, "search")
-        trace = check_trace(index, queries)
-        paths["exact-prune"] = read_counts()  # the exact-prune path ends here
-        eg_build = in_build["edge_gather"]
-        eg_all = paths["exact-prune"]["edge_gather"]
-        say(f"phase 4 search: recall@10 {search[50]['recall']:.4f} (rescore 50), "
-            f"{search[300]['recall']:.4f} (rescore 300); edge_gather launches "
-            f"{eg_all} ({eg_build} in build, {eg_all - eg_build} in search)")
-        if eg_build == 0 or eg_all == eg_build:
-            fail("the exact-prune path did not launch the edge_gather kernel")
-        phase_agreement(index, queries)
-        search_stats = phase_search_stats(index, queries)
+            reset_counts()  # the windows path starts here
+            windows = phase_windows(index, vectors, queries)
+            paths["windows"] = read_counts()  # the windows path ends here
+            peaks["windows"] = max(w["peak_bytes"] for w in windows.values())
+            say(f"phase 5b windows: launches {paths['windows']}; peak device memory of a "
+                f"search up to {peaks['windows']} B")
+            debug_helpers = phase_debug_helpers(index)
+            del index
+            torch.cuda.empty_cache()
 
-        reset_counts()  # the windows path starts here
-        windows = phase_windows(index, vectors, queries)
-        paths["windows"] = read_counts()  # the windows path ends here
-        peaks["windows"] = max(w["peak_bytes"] for w in windows.values())
-        say(f"phase 5b windows: launches {paths['windows']}; peak device memory of a "
-            f"search up to {peaks['windows']} B")
-        debug_helpers = phase_debug_helpers(index)
-        del index
+            reset_counts()  # the storage path starts here
+            torch.cuda.reset_peak_memory_stats()
+            s_index, s_build_times = phase_build(vectors, "storage build", build_distance="storage")
+            peaks["storage build"] = torch.cuda.max_memory_allocated()
+            s_in_build = read_counts()
+            say(f"phase 6 storage build: launches {s_in_build}; peak device memory "
+                f"{peaks['storage build']} B")
+            s_search, peaks["storage search"] = phase_search(
+                s_index, vectors, queries, "storage search")
+            paths["storage"] = read_counts()  # the storage path ends here
+            say(f"phase 6 storage search: recall@10 {s_search[50]['recall']:.4f} "
+                f"(rescore 50), {s_search[300]['recall']:.4f} (rescore 300); "
+                f"launches {paths['storage']}")
+            if s_in_build["hamming_matrix"] < 1 or s_in_build["edge_gather"] == 0:
+                fail("the storage build did not launch both kernels")
+            del s_index
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the life-cycle path starts here
+            torch.cuda.reset_peak_memory_stats()
+            life, life_snap = phase_life_cycle(vectors, queries)
+            paths["life cycle"] = read_counts()  # the life-cycle path ends here
+            peaks["life cycle"] = torch.cuda.max_memory_allocated()
+            say(f"phase 7 life cycle: launches {paths['life cycle']}; peak device memory "
+                f"{peaks['life cycle']} B")
+            if min(paths["life cycle"].values()) == 0:
+                fail("the life cycle did not launch both kernels")
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the refine path starts here
+            torch.cuda.reset_peak_memory_stats()
+            r_index, r_build_times = phase_build(vectors, "refine build", counts=read_counts,
+                                                 refine_passes=1, build_distance="exact-prune")
+            peaks["refine build"] = torch.cuda.max_memory_allocated()
+            r_search, peaks["refine search"] = phase_search(r_index, vectors, queries,
+                                                            "refine search")
+            paths["refine"] = read_counts()  # the refine path ends here
+            in_refine = r_build_times["launches_after_waves"]["edge_gather"]
+            say(f"phase 8 refine: recall@10 {r_search[300]['recall']:.4f} at rescore 300 "
+                f"(unrefined build {search[300]['recall']:.4f}), {r_search[50]['recall']:.4f} at "
+                f"rescore 50 (unrefined {search[50]['recall']:.4f}); launches {paths['refine']}, "
+                f"edge_gather {in_refine} in finalize+refine; peak device memory "
+                f"{peaks['refine build']} B")
+            if in_refine == 0:
+                fail("the refinement pass did not launch edge_gather")
+            del r_index
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the exact path starts here
+            exact = phase_exact(vectors, queries, read_counts)
+            paths["exact"] = read_counts()  # the exact path ends here
+            peaks.update({f"exact {k[:-11]}": exact[k] for k in
+                          ("build_peak_bytes", "search_peak_bytes", "add_peak_bytes")})
+            say(f"phase 9 exact: recall@10 {exact['search'][50]['recall']:.4f} (rescore 50), "
+                f"{exact['search'][300]['recall']:.4f} (rescore 300); launches {paths['exact']}; "
+                f"peak device memory of the build {exact['build_peak_bytes']} B")
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the plain path starts here
+            torch.cuda.reset_peak_memory_stats()
+            p_index, p_build_times = phase_build(vectors, "plain build",
+                                                 storage_layout=StorageLayout.PLAIN)
+            peaks["plain build"] = torch.cuda.max_memory_allocated()
+            p_search, peaks["plain search"] = phase_search(p_index, vectors, queries,
+                                                           "plain search", rescores=(50,))
+            paths["plain"] = read_counts()  # the plain path ends here
+            say(f"phase 10 plain: recall@10 {p_search[50]['recall']:.4f} at L=100; launches "
+                f"{paths['plain']}; peak device memory of the build {peaks['plain build']} B")
+            if any(paths["plain"].values()):
+                fail("the plain path launched a kernel")
+            gather_dot = time_gather_dot(p_index)
+            del p_index
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the filtered path starts here
+            filtered = phase_filtered(vectors, queries, read_counts)
+            paths["filtered"] = filtered["launches"]  # read before its agreement check
+            peaks["filtered build"] = filtered["build_peak_bytes"]
+            peaks["filtered search"] = max(v["peak_bytes"] for v in filtered["search"].values())
+            point = "L={} rescore={} E={}".format(*FILTER_POINTS[-1])
+            say(f"phase 11 filtered: recall@10 {filtered['search']['1-label ' + point]['recall']:.4f} "
+                f"(1 label), {filtered['search']['2-label ' + point]['recall']:.4f} (2 labels) at "
+                f"{point}; launches {paths['filtered']} ({filtered['build_launches']} in the "
+                f"build); peak device memory of the build {peaks['filtered build']} B")
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the filtered life-cycle path starts here
+            torch.cuda.reset_peak_memory_stats()
+            f_life = phase_filtered_life_cycle(vectors, queries)
+            paths["filtered life cycle"] = read_counts()  # the filtered life cycle ends here
+            peaks["filtered life cycle"] = torch.cuda.max_memory_allocated()
+            say(f"phase 12 filtered life cycle: launches {paths['filtered life cycle']}; peak "
+                f"device memory {peaks['filtered life cycle']} B")
+            if min(paths["filtered life cycle"].values()) == 0:
+                fail("the filtered life cycle did not launch both kernels")
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the int8 scale path starts here
+            s_index, scale_vectors, s_queries, flag, filtered_gt, scale_gt, scale = phase_scale(
+                read_counts)
+            paths["int8 scale"] = read_counts()  # the int8 scale path ends here
+            peaks["int8 build"] = scale["build_peak_bytes"]
+            peaks["int8 search"] = max(v["peak_bytes"] for v in scale["search"].values())
+            say(f"phase 13 int8 scale: launches {paths['int8 scale']} "
+                f"({scale['build_launches']} in the build); peak device memory of the build "
+                f"{peaks['int8 build']} B, of a search up to {peaks['int8 search']} B")
+            tiers = phase_rescore_tiers()  # outside the path
+
+            reset_counts()  # the stream path starts here
+            torch.cuda.reset_peak_memory_stats()
+            stream = phase_stream(s_index, s_queries, flag, filtered_gt)
+            paths["stream"] = read_counts()  # the stream path ends here
+            peaks["stream"] = torch.cuda.max_memory_allocated()
+            say(f"phase 14 stream: launches {paths['stream']}; peak device memory "
+                f"{peaks['stream']} B")
+            graph_1m = download_graph(s_index)
+            del s_index
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the int8 life-cycle path starts here
+            torch.cuda.reset_peak_memory_stats()
+            i_life, _ = phase_life_cycle(vectors, queries, phase="int8 life cycle",
+                                         vector_dtype="int8")
+            paths["int8 life cycle"] = read_counts()  # the int8 life cycle ends here
+            peaks["int8 life cycle"] = torch.cuda.max_memory_allocated()
+            say(f"phase 15 int8 life cycle: launches {paths['int8 life cycle']}; peak device "
+                f"memory {peaks['int8 life cycle']} B")
+            if min(paths["int8 life cycle"].values()) == 0:
+                fail("the int8 life cycle did not launch both kernels")
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the durable life-cycle path starts here
+            torch.cuda.reset_peak_memory_stats()
+            durable = phase_durable(vectors, queries, build_dir, life_snap, read_counts)
+            paths["durable life cycle"] = read_counts()  # the durable life cycle ends here
+            peaks["durable life cycle"] = torch.cuda.max_memory_allocated()
+            say(f"phase 16 durable life cycle: launches {paths['durable life cycle']} "
+                f"({durable['replay_launches']} in the replay); peak device memory "
+                f"{peaks['durable life cycle']} B")
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the host graph and tools path starts here
+            host_graph = phase_host_graph(graph_1m)
+            del graph_1m
+            cli = phase_cli(vectors, queries, build_dir)
+            paths["host graph and tools"] = read_counts()  # the path ends here
+            say(f"phase 17 host graph and tools: launches {paths['host graph and tools']} (the "
+                f"library's search of the CLI's checkpoint; the CLI's subprocesses count their own)")
+            if paths["host graph and tools"]["edge_gather"] == 0:
+                fail("phase 17 did not launch edge_gather")
+            torch.cuda.empty_cache()
+
+            reset_counts()  # the high-dim path starts here
+            high_dim = phase_high_dim(read_counts)
+            paths["high dim"] = read_counts()  # the high-dim path ends here
+            peaks["high dim build"] = high_dim["build_peak_bytes"]
+            say(f"phase 18 high dim: launches {paths['high dim']}")
+            summary = {
+                "card": card, "launches_by_path": paths,
+                "kernel_timing_shapes": {k: timing[k]["shape"] for k in KERNELS},
+                "kernel_bounds": {k: timing[k]["bound_how"] for k in KERNELS},
+                "edge_gather_by_q": timing["edge_gather"]["by_q"],
+                "hamming_matrix_yardsticks_ms": timing["hamming_matrix"]["yardsticks_ms"],
+                "peak_memory_bytes": peaks,
+                "build_s": build_times, "search": {str(k): v for k, v in search.items()},
+                "storage_build_s": s_build_times,
+                "storage_search": {str(k): v for k, v in s_search.items()},
+                "life_cycle": life, "windows": windows,
+                "refine_build_s": r_build_times,
+                "refine_search": {str(k): v for k, v in r_search.items()},
+                "exact": {**exact, "search": {str(k): v for k, v in exact["search"].items()}},
+                "plain_build_s": p_build_times,
+                "plain_search": {str(k): v for k, v in p_search.items()},
+                "gather_dot_ms": gather_dot,
+                "filtered": filtered, "filtered_life_cycle": f_life,
+                "int8_scale": scale, "rescore_tiers": tiers, "stream": stream,
+                "int8_life_cycle": i_life,
+                "build_stats": build_stats, "search_trace": trace, "search_stats": search_stats,
+                "durable_life_cycle": durable, "host_graph": host_graph, "cli": cli,
+                "debug_helpers": debug_helpers, "high_dim": high_dim,
+                "elapsed_s": elapsed(),
+            }
+
+        reset_counts()  # the sharded 1M path starts here
+        sharded = phase_sharded_scale(scale_vectors, s_queries, scale_gt, scale["search"],
+                                      read_counts)
+        paths["sharded 1M"] = read_counts()  # the sharded 1M path ends here
+        say(f"phase 19 sharded 1M: launches {paths['sharded 1M']}")
+        del scale_vectors
         torch.cuda.empty_cache()
-
-        reset_counts()  # the storage path starts here
-        torch.cuda.reset_peak_memory_stats()
-        s_index, s_build_times = phase_build(vectors, "storage build", build_distance="storage")
-        peaks["storage build"] = torch.cuda.max_memory_allocated()
-        s_in_build = read_counts()
-        say(f"phase 6 storage build: launches {s_in_build}; peak device memory "
-            f"{peaks['storage build']} B")
-        s_search, peaks["storage search"] = phase_search(
-            s_index, vectors, queries, "storage search")
-        paths["storage"] = read_counts()  # the storage path ends here
-        say(f"phase 6 storage search: recall@10 {s_search[50]['recall']:.4f} "
-            f"(rescore 50), {s_search[300]['recall']:.4f} (rescore 300); "
-            f"launches {paths['storage']}")
-        if s_in_build["hamming_matrix"] < 1 or s_in_build["edge_gather"] == 0:
-            fail("the storage build did not launch both kernels")
-        del s_index
+        reset_counts()  # the sharded life-cycle path starts here
+        sharded["life_cycle"] = phase_sharded_life_cycle(vectors, queries, read_counts)
+        paths["sharded life cycle"] = read_counts()  # the sharded life cycle ends here
+        say(f"phase 19 sharded life cycle: launches {paths['sharded life cycle']}")
+        if min(paths["sharded life cycle"].values()) == 0:
+            fail("the sharded life cycle did not launch both kernels")
         torch.cuda.empty_cache()
-
-        reset_counts()  # the life-cycle path starts here
-        torch.cuda.reset_peak_memory_stats()
-        life, life_snap = phase_life_cycle(vectors, queries)
-        paths["life cycle"] = read_counts()  # the life-cycle path ends here
-        peaks["life cycle"] = torch.cuda.max_memory_allocated()
-        say(f"phase 7 life cycle: launches {paths['life cycle']}; peak device memory "
-            f"{peaks['life cycle']} B")
-        if min(paths["life cycle"].values()) == 0:
-            fail("the life cycle did not launch both kernels")
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the refine path starts here
-        torch.cuda.reset_peak_memory_stats()
-        r_index, r_build_times = phase_build(vectors, "refine build", counts=read_counts,
-                                             refine_passes=1, build_distance="exact-prune")
-        peaks["refine build"] = torch.cuda.max_memory_allocated()
-        r_search, peaks["refine search"] = phase_search(r_index, vectors, queries,
-                                                        "refine search")
-        paths["refine"] = read_counts()  # the refine path ends here
-        in_refine = r_build_times["launches_after_waves"]["edge_gather"]
-        say(f"phase 8 refine: recall@10 {r_search[300]['recall']:.4f} at rescore 300 "
-            f"(unrefined build {search[300]['recall']:.4f}), {r_search[50]['recall']:.4f} at "
-            f"rescore 50 (unrefined {search[50]['recall']:.4f}); launches {paths['refine']}, "
-            f"edge_gather {in_refine} in finalize+refine; peak device memory "
-            f"{peaks['refine build']} B")
-        if in_refine == 0:
-            fail("the refinement pass did not launch edge_gather")
-        del r_index
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the exact path starts here
-        exact = phase_exact(vectors, queries, read_counts)
-        paths["exact"] = read_counts()  # the exact path ends here
-        peaks.update({f"exact {k[:-11]}": exact[k] for k in
-                      ("build_peak_bytes", "search_peak_bytes", "add_peak_bytes")})
-        say(f"phase 9 exact: recall@10 {exact['search'][50]['recall']:.4f} (rescore 50), "
-            f"{exact['search'][300]['recall']:.4f} (rescore 300); launches {paths['exact']}; "
-            f"peak device memory of the build {exact['build_peak_bytes']} B")
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the plain path starts here
-        torch.cuda.reset_peak_memory_stats()
-        p_index, p_build_times = phase_build(vectors, "plain build",
-                                             storage_layout=StorageLayout.PLAIN)
-        peaks["plain build"] = torch.cuda.max_memory_allocated()
-        p_search, peaks["plain search"] = phase_search(p_index, vectors, queries,
-                                                       "plain search", rescores=(50,))
-        paths["plain"] = read_counts()  # the plain path ends here
-        say(f"phase 10 plain: recall@10 {p_search[50]['recall']:.4f} at L=100; launches "
-            f"{paths['plain']}; peak device memory of the build {peaks['plain build']} B")
-        if any(paths["plain"].values()):
-            fail("the plain path launched a kernel")
-        gather_dot = time_gather_dot(p_index)
-        del p_index
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the filtered path starts here
-        filtered = phase_filtered(vectors, queries, read_counts)
-        paths["filtered"] = filtered["launches"]  # read before its agreement check
-        peaks["filtered build"] = filtered["build_peak_bytes"]
-        peaks["filtered search"] = max(v["peak_bytes"] for v in filtered["search"].values())
-        point = "L={} rescore={} E={}".format(*FILTER_POINTS[-1])
-        say(f"phase 11 filtered: recall@10 {filtered['search']['1-label ' + point]['recall']:.4f} "
-            f"(1 label), {filtered['search']['2-label ' + point]['recall']:.4f} (2 labels) at "
-            f"{point}; launches {paths['filtered']} ({filtered['build_launches']} in the "
-            f"build); peak device memory of the build {peaks['filtered build']} B")
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the filtered life-cycle path starts here
-        torch.cuda.reset_peak_memory_stats()
-        f_life = phase_filtered_life_cycle(vectors, queries)
-        paths["filtered life cycle"] = read_counts()  # the filtered life cycle ends here
-        peaks["filtered life cycle"] = torch.cuda.max_memory_allocated()
-        say(f"phase 12 filtered life cycle: launches {paths['filtered life cycle']}; peak "
-            f"device memory {peaks['filtered life cycle']} B")
-        if min(paths["filtered life cycle"].values()) == 0:
-            fail("the filtered life cycle did not launch both kernels")
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the int8 scale path starts here
-        s_index, s_queries, flag, filtered_gt, scale = phase_scale(read_counts)
-        paths["int8 scale"] = read_counts()  # the int8 scale path ends here
-        peaks["int8 build"] = scale["build_peak_bytes"]
-        peaks["int8 search"] = max(v["peak_bytes"] for v in scale["search"].values())
-        say(f"phase 13 int8 scale: launches {paths['int8 scale']} "
-            f"({scale['build_launches']} in the build); peak device memory of the build "
-            f"{peaks['int8 build']} B, of a search up to {peaks['int8 search']} B")
-        tiers = phase_rescore_tiers()  # outside the path
-
-        reset_counts()  # the stream path starts here
-        torch.cuda.reset_peak_memory_stats()
-        stream = phase_stream(s_index, s_queries, flag, filtered_gt)
-        paths["stream"] = read_counts()  # the stream path ends here
-        peaks["stream"] = torch.cuda.max_memory_allocated()
-        say(f"phase 14 stream: launches {paths['stream']}; peak device memory "
-            f"{peaks['stream']} B")
-        graph_1m = download_graph(s_index)
-        del s_index
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the int8 life-cycle path starts here
-        torch.cuda.reset_peak_memory_stats()
-        i_life, _ = phase_life_cycle(vectors, queries, phase="int8 life cycle",
-                                     vector_dtype="int8")
-        paths["int8 life cycle"] = read_counts()  # the int8 life cycle ends here
-        peaks["int8 life cycle"] = torch.cuda.max_memory_allocated()
-        say(f"phase 15 int8 life cycle: launches {paths['int8 life cycle']}; peak device "
-            f"memory {peaks['int8 life cycle']} B")
-        if min(paths["int8 life cycle"].values()) == 0:
-            fail("the int8 life cycle did not launch both kernels")
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the durable life-cycle path starts here
-        torch.cuda.reset_peak_memory_stats()
-        durable = phase_durable(vectors, queries, build_dir, life_snap, read_counts)
-        paths["durable life cycle"] = read_counts()  # the durable life cycle ends here
-        peaks["durable life cycle"] = torch.cuda.max_memory_allocated()
-        say(f"phase 16 durable life cycle: launches {paths['durable life cycle']} "
-            f"({durable['replay_launches']} in the replay); peak device memory "
-            f"{peaks['durable life cycle']} B")
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the host graph and tools path starts here
-        host_graph = phase_host_graph(graph_1m)
-        del graph_1m
-        cli = phase_cli(vectors, queries, build_dir)
-        paths["host graph and tools"] = read_counts()  # the path ends here
-        say(f"phase 17 host graph and tools: launches {paths['host graph and tools']} (the "
-            f"library's search of the CLI's checkpoint; the CLI's subprocesses count their own)")
-        if paths["host graph and tools"]["edge_gather"] == 0:
-            fail("phase 17 did not launch edge_gather")
-        torch.cuda.empty_cache()
-
-        reset_counts()  # the high-dim path starts here
-        high_dim = phase_high_dim(read_counts)
-        paths["high dim"] = read_counts()  # the high-dim path ends here
-        peaks["high dim build"] = high_dim["build_peak_bytes"]
-        say(f"phase 18 high dim: launches {paths['high dim']}")
+        sharded["processes"] = phase_sharded_processes(vectors, queries, build_dir)
+        summary.update(sharded=sharded, elapsed_s=elapsed())
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 
@@ -2432,31 +2909,6 @@ def main() -> int:
         "bound_by": timing[k]["bound_by"],
         "library_ms": timing[k]["library_ms"],
     } for k in KERNELS]}
-    summary = {
-        "card": card, "launches_by_path": paths,
-        "kernel_timing_shapes": {k: timing[k]["shape"] for k in KERNELS},
-        "kernel_bounds": {k: timing[k]["bound_how"] for k in KERNELS},
-        "edge_gather_by_q": timing["edge_gather"]["by_q"],
-        "hamming_matrix_yardsticks_ms": timing["hamming_matrix"]["yardsticks_ms"],
-        "peak_memory_bytes": peaks,
-        "build_s": build_times, "search": {str(k): v for k, v in search.items()},
-        "storage_build_s": s_build_times,
-        "storage_search": {str(k): v for k, v in s_search.items()},
-        "life_cycle": life, "windows": windows,
-        "refine_build_s": r_build_times,
-        "refine_search": {str(k): v for k, v in r_search.items()},
-        "exact": {**exact, "search": {str(k): v for k, v in exact["search"].items()}},
-        "plain_build_s": p_build_times,
-        "plain_search": {str(k): v for k, v in p_search.items()},
-        "gather_dot_ms": gather_dot,
-        "filtered": filtered, "filtered_life_cycle": f_life,
-        "int8_scale": scale, "rescore_tiers": tiers, "stream": stream,
-        "int8_life_cycle": i_life,
-        "build_stats": build_stats, "search_trace": trace, "search_stats": search_stats,
-        "durable_life_cycle": durable, "host_graph": host_graph, "cli": cli,
-        "debug_helpers": debug_helpers, "high_dim": high_dim,
-        "elapsed_s": elapsed(),
-    }
     say(f"summary {json.dumps(summary)}")
     if elapsed() > BUDGET_S:
         fail(f"the run took {elapsed():.1f}s, over its budget of {BUDGET_S}s")

@@ -381,6 +381,28 @@ def _wave_step(
     node_ids: torch.Tensor,  # i32[B], INVALID_ID padded
     prefix: int,  # rows < prefix may be candidates
     snap_adjacency: Optional[torch.Tensor],  # i32[cap, R] snapshot
+    **kw,
+) -> GraphArrays:
+    """One wave: candidates, prune (``_wave_neighbours``), then row writes,
+    backlinks and the overflow prune (``_wave_commit``)."""
+    nbr_ids = _wave_neighbours(arrays, node_ids, prefix, snap_adjacency, **kw)
+    return _wave_commit(arrays, node_ids, nbr_ids, **_prune_kw(kw))
+
+
+def _prune_kw(wave_kw: dict) -> dict:
+    """The prune's settings among a wave step's keyword arguments."""
+    return dict(
+        use_codes=wave_kw["prune_use_codes"], code_bits=wave_kw["code_bits"],
+        distance_type=wave_kw["distance_type"], alphas=wave_kw["alphas"],
+        num_neighbors=wave_kw["num_neighbors"], trunc_dims=wave_kw["trunc_dims"],
+    )
+
+
+def _wave_neighbours(
+    arrays: GraphArrays,
+    node_ids: torch.Tensor,  # i32[B], INVALID_ID padded
+    prefix: int,  # rows < prefix may be candidates
+    snap_adjacency: Optional[torch.Tensor],  # i32[cap, R] snapshot
     *,
     search_list_size: int,
     max_iters: int,
@@ -394,9 +416,10 @@ def _wave_step(
     code_bits: int,
     use_codes: bool = True,
     include_existing: bool = False,
-) -> GraphArrays:
-    """One wave: candidates, prune, row writes, backlinks and the overflow
-    prune.
+) -> torch.Tensor:
+    """A wave's neighbour lists, i32[B, R]: candidates, then the prune.
+    Each row's list depends on that row and the arrays alone, so a wave
+    split into parts gives the same lists.
 
     ``use_codes`` is the traversal measure: Hamming on the codes over
     ``snap_adjacency`` (which a searched wave then needs), else full
@@ -487,7 +510,17 @@ def _wave_step(
     nbr_ids, _ = prune_candidate_sets(
         arrays, node_ids, cand_ids, cand_dists, **prune_kw
     )
+    return nbr_ids
 
+
+def _wave_commit(
+    arrays: GraphArrays,
+    node_ids: torch.Tensor,  # i32[B], INVALID_ID padded
+    nbr_ids: torch.Tensor,  # i32[B, R] the wave's pruned neighbour lists
+    **prune_kw,
+) -> GraphArrays:
+    """The wave's writes: the rows themselves, the backlinks and the
+    overflow prune of the rows the backlinks overfill."""
     rows = torch.nn.functional.pad(
         nbr_ids, (0, arrays.max_degree - nbr_ids.shape[1]), value=INVALID_ID
     )
@@ -566,6 +599,12 @@ def insert_wave(
 def finalize(arrays: GraphArrays, ctx: BuildContext) -> GraphArrays:
     """Trim every row above num_neighbors with one more prune, then repair
     orphans (finalize_index_build)."""
+    return repair_orphans(prune_over_degree(arrays, ctx))
+
+
+def prune_over_degree(arrays: GraphArrays, ctx: BuildContext) -> GraphArrays:
+    """Re-prune every row with more than num_neighbors neighbours, in
+    batches of PRUNE_BATCH rows (ascending ids): finalize's prune pass."""
     config = ctx.config
     cap = arrays.capacity
     dev = arrays.device
@@ -587,7 +626,7 @@ def finalize(arrays: GraphArrays, ctx: BuildContext) -> GraphArrays:
             distance_type=config.distance_type, alphas=ctx.alphas,
             num_neighbors=config.num_neighbors, trunc_dims=config.dims_to_index,
         )
-    return repair_orphans(arrays)
+    return arrays
 
 
 def _reachable_scatter(arrays: GraphArrays) -> torch.Tensor:

@@ -131,6 +131,25 @@ def _expand_rescore_window(
     )
 
 
+def _window_plan(config: IndexConfig, params: QueryParams, k: int, l: int,
+                 use_exact: bool, r_max: int) -> tuple[int, int, int]:
+    """(beam width, "expand" window's m, "scored" window's n) of a search.
+    A rescore window wider than the beam: "expand" (SBQ) caps the beam
+    near 2L and widens the candidates with the top beam nodes' 1-hop
+    neighbours; "scored" caps the beam the same way and keeps the best
+    `window` scored candidates of the search; otherwise ("beam", and
+    plain storage's "expand") the beam itself widens.  The visit budget
+    stays keyed to L."""
+    window = params.rescore + k if use_exact else 0
+    beam_width = max(l, window)
+    if config.uses_sbq and params.window_strategy == "expand" and window > 2 * l + 16:
+        beam_width = 2 * l + 16
+        return beam_width, min(beam_width, max(4, -(-2 * (window - beam_width) // r_max))), 0
+    if params.window_strategy == "scored" and window > l:
+        return min(2 * l + 16, window), 0, window
+    return beam_width, 0, 0
+
+
 def _exact_batch_distances(
     vectors: torch.Tensor,  # f32, bf16 or int8[cap, D]
     scales: torch.Tensor,  # f32[cap]
@@ -381,6 +400,17 @@ def _reuse_ingest(arrays: GraphArrays, stats: sbq.SbqStats, raw: torch.Tensor,
     return arrays
 
 
+def _own(arrays: GraphArrays) -> GraphArrays:
+    """``arrays`` with copies of every tensor a write may touch: a reader
+    may hold the originals.  The label tables are replaced, never
+    written."""
+    return arrays._replace(
+        vectors=arrays.vectors.clone(), codes=arrays.codes.clone(),
+        adjacency=arrays.adjacency.clone(), deleted=arrays.deleted.clone(),
+        node_labels=arrays.node_labels.clone(), vec_scales=arrays.vec_scales.clone(),
+    )
+
+
 def _migrate_v1_to_v2(z: dict) -> dict:
     # v2 added config.vector_dtype (defaulted on read) and uint16 bit views
     # for bf16 vectors; v1 checkpoints are all-f32, nothing to rewrite.
@@ -429,13 +459,16 @@ def _register_label_starts(
     arrays: GraphArrays,
     label_arr: np.ndarray,  # i32[M, Lm] rows being stored
     node_ids: np.ndarray,  # i32[M] where they are stored
+    grow: bool = True,
 ) -> GraphArrays:
     """The first row carrying a label that has no start node becomes its
     start node (update_start_nodes, graph/mod.rs:490-533).  New entries
     fill the table's free slots in ascending order, in the order the
     JAX package's row-by-row walk discovers them (row-major first
-    occurrence); the table doubles when it runs out.  Returns new table
-    tensors; the old ones are not written."""
+    occurrence); the table doubles when it runs out, or, with
+    ``grow=False`` (the sharded index's rule, whose shards' tables keep
+    one width), the labels found after the last free slot get none.
+    Returns new table tensors; the old ones are not written."""
     keys = arrays.label_start_keys.cpu().numpy()
     ids = arrays.label_start_ids.cpu().numpy()
     lm = label_arr.shape[1]
@@ -451,7 +484,11 @@ def _register_label_starts(
     labels = labels[order]
     nodes = np.asarray(node_ids)[rows[real][first[order]]]
     free = np.nonzero(keys == LABEL_SENTINEL)[0]
-    if len(free) < len(labels):
+    if not grow:
+        labels, nodes = labels[: len(free)], nodes[: len(free)]
+        if len(labels) == 0:
+            return arrays
+    elif len(free) < len(labels):
         grow_by = max(len(labels) - len(free), len(keys))
         keys = np.concatenate([keys, np.full(grow_by, LABEL_SENTINEL, np.int32)])
         ids = np.concatenate([ids, np.full(grow_by, INVALID_ID, np.int32)])
@@ -833,14 +870,7 @@ class DiskannIndex(DurableIndexMixin):
                     arrays, max(_round_up(needed, 1024), 2 * arrays.capacity)
                 )
             else:
-                # Copy before the first write: a reader may hold these.
-                arrays = arrays._replace(
-                    vectors=arrays.vectors.clone(), codes=arrays.codes.clone(),
-                    adjacency=arrays.adjacency.clone(),
-                    deleted=arrays.deleted.clone(),
-                    node_labels=arrays.node_labels.clone(),
-                    vec_scales=arrays.vec_scales.clone(),
-                )
+                arrays = _own(arrays)
             if n_reuse:
                 arrays = _reuse_ingest(
                     arrays, self.sbq_stats, vectors[:n_reuse],
@@ -990,8 +1020,7 @@ class DiskannIndex(DurableIndexMixin):
             if int(z["magic"]) != CHECKPOINT_MAGIC:
                 raise ValueError("not a pgvectorscale_tpu checkpoint")
             if "sharded" in z and int(z["sharded"]) == 1:
-                raise ValueError("sharded checkpoint; the port loads "
-                                 "single-device checkpoints")
+                raise ValueError("sharded checkpoint; use ShardedDiskannIndex.load")
             version = int(z["version"])
             if version > CHECKPOINT_VERSION:
                 raise ValueError(
@@ -1097,26 +1126,8 @@ class DiskannIndex(DurableIndexMixin):
                 raise ValueError("query_labels must hold one entry per query")
         l = max(params.search_list_size, k)
         use_exact = self._needs_rescore(params)
-        # A rescore window wider than the beam: "expand" (SBQ) caps the beam
-        # near 2L and widens the candidates with the top beam nodes' 1-hop
-        # neighbours; "scored" caps the beam the same way and keeps the
-        # best `window` scored candidates of the search; otherwise ("beam",
-        # and plain storage's "expand") the beam itself widens.  The visit
-        # budget stays keyed to L.
-        window = params.rescore + k if use_exact else 0
-        expand_window_m = 0
-        window_n = 0
-        beam_width = max(l, window)
-        if (config.uses_sbq and params.window_strategy == "expand"
-                and window > 2 * l + 16):
-            beam_width = 2 * l + 16
-            r = arrays.max_degree
-            expand_window_m = min(
-                beam_width, max(4, -(-2 * (window - beam_width) // r))
-            )
-        elif params.window_strategy == "scored" and window > l:
-            beam_width = min(2 * l + 16, window)
-            window_n = window
+        beam_width, expand_window_m, window_n = _window_plan(
+            config, params, k, l, use_exact, arrays.max_degree)
         with _full_f32():
             ids, dists, res = _search(
                 arrays, self.sbq_stats, queries,
@@ -1206,10 +1217,12 @@ class SearchIterator:
     tombstone mirror.  Each refill's window is rescored in one batch; the
     window grows geometrically (up to 4,096) while refills come back full,
     and a starved frontier restarts from ``first_unseen``.  A
-    label-filtered iterator re-runs the filtered ``search`` with a doubled
-    L per refill instead.  Streaming statistics (Welford, over the
-    increments of the largest distance seen, StreamingStats in
-    scan.rs:119-160) are kept as the JAX package keeps them."""
+    label-filtered iterator, and an iterator over an index without flat
+    ``arrays`` (``ShardedDiskannIndex``: global slot ids), re-run the
+    index's ``search`` with a doubled L per refill instead.  Streaming
+    statistics (Welford, over the increments of the largest distance
+    seen, StreamingStats in scan.rs:119-160) are kept as the JAX package
+    keeps them."""
 
     def __init__(self, index: DiskannIndex, query, params: QueryParams,
                  query_labels: Optional[Iterable[int]] = None):
@@ -1229,7 +1242,9 @@ class SearchIterator:
         self._it_state = None
         self._it_qv = None
         self._it_qc = None
-        self._arrays = index.arrays  # the scan's snapshot
+        # The scan's snapshot; None for an index without flat arrays
+        # (ShardedDiskannIndex), which takes the restart fallback.
+        self._arrays = getattr(index, "arrays", None)
         self._emit_n = _round_up(max(self._l, 64), 64)
         self.stats_count = 0
         self.stats_mean = 0.0
@@ -1262,7 +1277,7 @@ class SearchIterator:
 
     def _refill_pending(self) -> None:
         with _full_f32():
-            if self.query_labels is not None:
+            if self.query_labels is not None or self._arrays is None:
                 self._refill_restart()
             else:
                 self._refill_resume()
@@ -1315,15 +1330,18 @@ class SearchIterator:
                         self._it_state, self._arrays, self._it_qv, self._it_qc, nid, **kw)
 
     def _refill_restart(self) -> None:
-        """Label-filtered fallback: re-run the filtered search with a
-        doubled L until it yields rows not seen yet."""
+        """Fallback of a label-filtered iterator and of a sharded index:
+        re-run the search with a doubled L until it yields rows not seen
+        yet."""
         index = self.index
         n_live = index.num_live
+        # A sharded index's search runs on its mesh; it takes no device.
+        kw = {"device": index.device} if self._arrays is not None else {}
         while not self._pending and not self._exhausted:
             k = self._l
             ids, dists = index.search(
                 self.query, k, QueryParams(search_list_size=self._l, rescore=0),
-                query_labels=self.query_labels, device=index.device,
+                query_labels=self.query_labels, **kw,
             )
             fresh = [(int(i), float(d)) for i, d in zip(ids[0].cpu().numpy(),
                                                         dists[0].cpu().numpy())

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,8 +27,9 @@ NVCC_FLAGS = (
 )
 NVCC_TIMEOUT_S = 300
 
-# name -> ctypes library, for this process.
+# name -> ctypes library, for this process; threads load under the lock.
 _LOADED: dict = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -98,6 +100,7 @@ def build(names, build_dir: Path | None = None) -> list[dict]:
 
 def load(name: str, build_dir: Path | None = None) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(build([name], build_dir)[0]["library"])
-    return _LOADED[name]
+    with _LOAD_LOCK:
+        if name not in _LOADED:
+            _LOADED[name] = ctypes.CDLL(build([name], build_dir)[0]["library"])
+        return _LOADED[name]

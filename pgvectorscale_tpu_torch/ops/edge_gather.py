@@ -27,12 +27,15 @@ contiguous output.  The TPU's 128-lane row padding and 0/1 segment-sum
 matrix have no counterpart.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain PyTorch version below.  ``launches`` counts kernel launches.
+plain PyTorch version below.  ``launches`` counts kernel launches
+(``count_launch``, under a lock: readers may search from several host
+threads).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -40,6 +43,13 @@ from . import _build
 from .hamming import popcount32
 
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    global launches
+    with _launch_lock:
+        launches += 1
 
 
 def hamming_edge_gather_plain(
@@ -94,7 +104,6 @@ def hamming_edge_gather(
 ) -> torch.Tensor:
     """f32[Q, E*R] Hamming distances from each query to the neighbours of
     its E frontier nodes."""
-    global launches
     _check(codes, adjacency, sel, query_codes)
     device = codes.device
     if device.type == "cpu":
@@ -116,7 +125,7 @@ def hamming_edge_gather(
     )
     if err != 0:
         raise RuntimeError(f"edge-gather kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch()
     return out
 
 

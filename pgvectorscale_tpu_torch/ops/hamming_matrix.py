@@ -27,12 +27,14 @@ plain PyTorch version, ``ops.hamming.hamming_distance_matrix``.
 (0/1 bytes and row popcounts, for pop(a) + pop(b) - 2 * dot) for the tests
 and the library yardstick; ``CHECK_CASES`` and ``check_codes`` are the
 cases that the card tests and ``chip_smoke.py`` hold the kernel to.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches (``count_launch``, under a lock:
+readers may search from several host threads).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -40,6 +42,13 @@ from . import _build
 from .hamming import code_bits, hamming_distance_matrix
 
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    global launches
+    with _launch_lock:
+        launches += 1
 
 hamming_matrix_plain = hamming_distance_matrix
 
@@ -108,7 +117,6 @@ def _check(query_codes: torch.Tensor, codes: torch.Tensor) -> None:
 
 def hamming_matrix(query_codes: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """[Q, W] x [N, W] int32 codes -> [Q, N] int32 Hamming distances."""
-    global launches
     _check(query_codes, codes)
     device = codes.device
     if device.type == "cpu":
@@ -129,7 +137,7 @@ def hamming_matrix(query_codes: torch.Tensor, codes: torch.Tensor) -> torch.Tens
     )
     if err != 0:
         raise RuntimeError(f"Hamming-matrix kernel launch failed: CUDA error {err}")
-    launches += 1
+    count_launch()
     return out
 
 

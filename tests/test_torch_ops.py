@@ -155,7 +155,8 @@ def test_edge_gather_plain_matches_pallas(rng, q, e, r, w):
 
 def test_port_imports_no_jax():
     """Neither the package (its CLI, native runtime, durability, stats,
-    debug, brute-force and utils modules included) nor the card scripts
+    debug, brute-force, utils, mesh, sharded-index, multi-process and
+    models modules included) nor the card scripts
     (chip_smoke.py, profile_main_path.py) name JAX or the JAX package, and
     importing them loads no JAX module."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pgvectorscale_tpu)\b(?!_torch)", re.M)
@@ -163,7 +164,9 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     pkg = ROOT / "pgvectorscale_tpu_torch"
     for rel in ("graph/iterate.py", "durability.py", "stats.py", "debug.py", "cli.py",
-                "native/__init__.py", "ops/bruteforce.py", "utils/__init__.py"):
+                "native/__init__.py", "ops/bruteforce.py", "utils/__init__.py",
+                "parallel/mesh.py", "parallel/sharded.py", "parallel/multihost.py",
+                "models/__init__.py"):
         assert pkg / rel in files, rel
     for f in files:
         assert not pat.search(f.read_text()), f"{f} imports JAX or the JAX package"
@@ -173,7 +176,9 @@ def test_port_imports_no_jax():
          "pgvectorscale_tpu_torch.cli, pgvectorscale_tpu_torch.native, "
          "pgvectorscale_tpu_torch.debug, pgvectorscale_tpu_torch.stats, "
          "pgvectorscale_tpu_torch.durability, pgvectorscale_tpu_torch.ops.bruteforce, "
-         "pgvectorscale_tpu_torch.utils, "
+         "pgvectorscale_tpu_torch.utils, pgvectorscale_tpu_torch.parallel.mesh, "
+         "pgvectorscale_tpu_torch.parallel.sharded, pgvectorscale_tpu_torch.parallel.multihost, "
+         "pgvectorscale_tpu_torch.models, "
          "chip_smoke, profile_main_path; "
          "print(sorted(m for m in sys.modules if m.split('.')[0] in "
          "('jax', 'jaxlib', 'pgvectorscale_tpu')))"],
