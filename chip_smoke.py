@@ -25,6 +25,10 @@ Phases, each reported on a timestamped, flushed line:
    matrix is also checked on constant codes and misaligned tables; the
    edge gather also at the code widths of 2,000-16,000-dim indexes (W =
    63, 96, 125, 250, 500), aligned and 4 bytes off a 16-byte boundary.
+   Then both kernels at the 4- and 8-bit tiers' code widths
+   (TIER_EDGE_CASES: W = 16 and 32 over 1M slots, W = 192 over 100k,
+   aligned and offset; TIER_MATRIX_CASES: W = 16, 32, 25 and 192), each
+   equal to its plain version and timed beside its bound.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -143,11 +147,12 @@ Phases, each reported on a timestamped, flushed line:
    before that index is freed) the native BFS (``native/``, g++) equals
    the device BFS; with the in-edges of 1,000 seeded rows cleared,
    ``repair_orphans_host`` leaves no orphan within the degree bound.
-   The CLI, each command a subprocess on the card: ``bench`` at its
-   defaults (100k cohere, 1,000 queries; recall at L=200 at least 0.80),
-   then build / info / search / add / delete / compact / info on 20,000
-   rows (``info``: all reachable, no orphans); the CLI's search ids
-   equal the library's on the same checkpoint.  The debug helpers on phase 3's index (run
+   The CLI on the card through ``cli.main`` in this process: ``bench``
+   at its defaults (100k cohere, 1,000 queries; recall at L=200 at least
+   0.80), then build / info / search / add / delete / compact / info on
+   20,000 rows (``info``: all reachable, no orphans); ``search`` runs as a
+   ``python -m`` subprocess, whose ids equal the library's on the same
+   checkpoint.  The debug helpers on phase 3's index (run
    before it is freed): all reachable, no orphans.
 18. high dim: a 16,000-dim SBQ index (cosine, R=16, L=32, 500-word codes)
    of 8,192 low-rank rows, max_wave 1,024 (the re-measure's rows: 4.19
@@ -157,12 +162,14 @@ Phases, each reported on a timestamped, flushed line:
 19. sharded: ``ShardedDiskannIndex`` on a mesh of SHARDS = 4 positions
    (``parallel.mesh.make_mesh``: one shard a card on a machine with four
    cards or more, else all four on cuda:0; the line says how many
-   distinct cards).  1M: phase 13's corpus and config row-sharded (250,000
-   rows a shard), seconds (train + ingest / waves / finalize), peak device
-   memory of each card, every shard's graph checks and every shard
-   tensor on its position's device; scale.py's first two "expand" points,
-   recall@10 of the external ids at no less than phase 13's at the same
-   point minus 0.05, QPS best of 3, edge_gather launched.  Life cycle:
+   distinct cards).  Scale: phase 13's config over the first SHARD_N =
+   500,000 rows of its corpus, row-sharded (125,000 rows a shard),
+   seconds (train + ingest / waves / finalize), peak device memory of
+   each card, every shard's graph checks and every shard tensor on its
+   position's device; scale.py's first two "expand" points, recall@10 of
+   the external ids (against the exact top-10 over those rows) at no
+   less than phase 13's over 1M rows at the same point minus 0.05, QPS
+   best of 3, edge_gather launched.  Life cycle:
    phase 7's storage config and sizes on the mesh (the shards' seed waves
    launch the Hamming matrix), delete through ``delete_external``, the
    reuse add leaving a reader's shards as they were, searches with no
@@ -174,10 +181,32 @@ Phases, each reported on a timestamped, flushed line:
    (one card each, the PGVS_TPU_* variables) build and search their
    shards of the life-cycle rows and must equal the one-process index;
    with one card it is not run.
+20. sift 4-bit 1M: the JAX repo's SIFT-1M deployment at 4 bits
+   (benchmarks/suite.py ``run_sift1m``, SUITE_BITS=4, SUITE_REFINE=1): the
+   seeded "sift" corpus, 1,000,000 x 128 and 2,048 queries, L2, L=100, 4
+   bits a dimension (W = 16), ``refine_passes=1``, library defaults
+   otherwise; build seconds (ingest / waves / finalize + refine), peak
+   device memory, launches (edge_gather in the waves and in the
+   refinement), the graph checks; the exact top-10 through
+   ``ExactIndex``; SIFT_POINTS of the suite's sweep, recall@10 against it
+   (each at least the JAX package's record in results/sift1m.jsonl less
+   0.03), QPS best of 3, peak memory, launches.  Then, outside the path,
+   the strict-rank SBQ ceiling (suite.py ``_sbq_ceiling``) at rescore 50,
+   300, 600 and 1,500 through the Hamming-matrix kernel in chunks of 256
+   queries: within 0.003 of the record, and a 2-bit encode of the same
+   corpus beside it.
+21. 8-bit storage 100k: phase 6's corpus, queries and storage build at 8
+   bits a dimension (W = 192, 6,144 code bits: the storage prune's
+   wide-code blocks, the seed wave's Hamming matrix at W = 192); build
+   seconds, peak device memory, both kernels launched, the graph checks;
+   phase 4's searches (floor 0.80 at rescore 300) beside phase 6's 2-bit
+   recall.
 
-``python3 chip_smoke.py --only-sharded`` runs phases 0-2, 13 and 19 alone
-(for a machine with several cards).  Each path (phases 3-4, 5b, 6, 7, 8,
-9, 10, 11, 12, 13, 14, 15, 16, 17, 18, and 19's 1M and life cycle) is
+Phases 20-21 run after phase 18, and phase 19 last.  ``python3
+chip_smoke.py --only-sharded`` runs phases 0-2, 13 and 19 alone (for a
+machine with several cards); ``--only-tiers`` runs phases 0-2, 20 and 21.
+Each path (phases 3-4, 5b, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+18, 20, 21, and 19's scale and life cycle) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the kernels line sums them.  The peak device memory
 (``torch.cuda.max_memory_allocated``) is reset at the start of each
@@ -237,10 +266,14 @@ DEADLINES = {
     "host graph": 450,
     "cli": 500,
     "high dim": 505,
-    "sharded build": 570,
-    "sharded search": 578,
-    "sharded life cycle": 594,
-    "sharded processes": 598,
+    "sift build": 530,
+    "sift search": 555,
+    "8-bit build": 570,
+    "8-bit search": 575,
+    "sharded build": 590,
+    "sharded search": 594,
+    "sharded life cycle": 598,
+    "sharded processes": 599,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # Device sleep in front of each timed run of calls (cuda_time_ms): 20 ms at
@@ -333,10 +366,52 @@ HD_POINTS = ((50, 100), (100, 200))
 # SHARDS cards or more, else all on cuda:0), scale.py's first two "expand"
 # points, the recall margin against phase 13's one-device index
 # (tests/test_sharded.py's), and the rows the life cycle's stream pulls.
-SHARDS = 4
+# The 1M build is cut to its first SHARD_N rows (125,000 a shard) for the
+# run's budget: their floor is still phase 13's recall over 1M rows.
+SHARDS, SHARD_N = 4, 500_000
 SHARD_POINTS = SCALE_POINTS[:2]
 SHARD_RECALL_MARGIN = 0.05
 SHARD_STREAM = 50
+# Phase 20, the JAX repo's SIFT-1M deployment at 4 bits (benchmarks/suite.py
+# run_sift1m with SUITE_BITS=4, SUITE_REFINE=1): rows, queries, seed, bits
+# and refinement passes; the rescores of the strict-rank SBQ ceiling,
+# computed in chunks of CEILING_CHUNK queries, and the JAX package's
+# ceiling there (results/sift1m.jsonl), which the port's must equal within
+# CEILING_TOL; the sweep's (L, rescore, E, strategy, visit_factor) points
+# searched, each with the record's recall@10, which the port's must reach
+# less SIFT_RECALL_MARGIN.
+SIFT_N, SIFT_NQ, SIFT_SEED, SIFT_BITS, SIFT_REFINE = 1_000_000, 2048, 42, 4, 1
+CEILING_RECORD = {50: 0.8401, 300: 0.9777, 600: 0.9924, 1500: 0.9984}
+CEILING_TOL, CEILING_CHUNK = 0.003, 256
+SIFT_POINTS = {
+    (100, 50, 4, "expand", 1.0): 0.8131,
+    (100, 150, 4, "expand", 1.0): 0.9236,
+    (150, 300, 2, "expand", 1.0): 0.9657,
+    (150, 600, 2, "expand", 2.0): 0.9766,
+    (300, 1500, 2, "expand", 1.0): 0.9906,
+    (200, 1500, 2, "scored", 2.0): 0.9914,
+    (200, 1500, 2, "beam", 2.0): 0.9952,
+    (400, 2000, 2, "beam", 2.0): 0.9983,
+}
+SIFT_RECALL_MARGIN = 0.03
+# The 2-bit ceiling of results/sift1m_2bit_r4.jsonl, printed beside the
+# port's 2-bit encode for information: that harness ranked with one
+# tie-break, not the strict rank.
+CEILING_2BIT_RECORD = {50: 0.5777, 300: 0.8231, 600: 0.8964, 1500: 0.9553}
+# Phase 21: phase 6's corpus and storage build at 8 bits a dimension (W =
+# 192, 6,144 code bits: the storage prune's wide-code blocks, the seed
+# waves' Hamming matrix at W = 192).
+WIDE_BITS = 8
+# Phase 2 at the tiers' code widths: edge_gather (q, e, r_max, w, cap), each
+# aligned and 4 bytes off (W = 16 and 32: 128 dims at 4 and 8 bits over
+# phase 20's 1M slots; W = 192: 768 dims at 8 bits over phase 21's 100k),
+# and hamming_matrix (q, n, w): phase 20's ceiling chunk (W = 16), a seed
+# wave at W = 32 and 192, and 100 dims at 8 bits (W = 25: off the 8-word
+# step, 4-byte copies).
+SIFT_CAP = ((SIFT_N + 1023) // 1024) * 1024
+TIER_EDGE_CASES = [(1024, 4, 65, 16, SIFT_CAP), (1024, 4, 65, 32, SIFT_CAP),
+                   (256, 4, 65, 192, ((N + 1023) // 1024) * 1024)]
+TIER_MATRIX_CASES = [(256, 65536, 16), (4096, 8192, 32), (333, 1000, 25), (4096, 8192, 192)]
 
 
 def elapsed() -> float:
@@ -485,9 +560,6 @@ def check_edge_gather(cap_main: int, card: dict) -> dict:
         (64, 2, 65, 6, 4096, False),
     ] + [(q, e, r, w, 4096, off) for q, e, r, w, off in eg.HIGH_DIM_CASES]
 
-    def rand_ids(cap, shape):
-        return torch.randint(0, cap, shape, dtype=torch.int32, device="cuda", generator=g)
-
     max_err = 0.0
     timed = {}
     for q, e, r, w, cap, offset in shapes:
@@ -504,31 +576,7 @@ def check_edge_gather(cap_main: int, card: dict) -> dict:
         if not ok:
             fail(f"edge_gather differs from its plain version at {(q, e, r, w, offset)}")
         if cap == cap_main:
-            # One codes table and adjacency of the index's size, 8 frontier
-            # draws in turn, as a search meets them.
-            sels = [rand_ids(cap, (q, e)) for _ in range(8)]
-            ms = cuda_time_ms(
-                lambda i: eg.hamming_edge_gather(codes, adj, sels[i % 8], qc), 48)
-            plain_ms = cuda_time_ms(
-                lambda i: eg.hamming_edge_gather_plain(codes, adj, sels[i % 8], qc), 16)
-            # The bytes each draw must move, from its own distinct rows.
-            draws = []
-            for s in sels:
-                nbrs = adj[s.long()].clamp(0, cap - 1)
-                draws.append((int(torch.unique(s).numel()), int(torch.unique(nbrs).numel())))
-            nbytes = sum(eg.bound_bytes(q, e, r, w, a, b) for a, b in draws) // len(draws)
-            bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, q * e * r, w))
-            l2 = eg.l2_bytes(q, e, r, w)
-            timed[q] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, bound_how=how, l2_bytes=l2,
-                shape=dict(q=q, e=e, r=r, w=w, cap=cap,
-                           sel_rows=[a for a, _ in draws], nbr_rows=[b for _, b in draws]),
-            )
-            say(f"  edge_gather timing at Q={q} E={e}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how}); "
-                f"code-row bytes the lanes read, L2 hits included: {l2} B "
-                f"(for information, no rate claimed)")
+            timed[q] = time_edge_gather(codes, adj, qc, e, card, g, plain=True)
         del codes, adj, sel, qc, got, want
     say(f"phase 2 kernel vs plain: edge_gather equal at all {len(shapes)} shapes")
     check_deadline("kernel vs plain")
@@ -537,6 +585,88 @@ def check_edge_gather(cap_main: int, card: dict) -> dict:
     timing["by_q"] = {str(q): {k: v for k, v in t.items() if k != "bound_how"}
                       for q, t in timed.items()}
     return timing
+
+
+def time_edge_gather(codes, adj, qc, e: int, card: dict, g, plain: bool) -> dict:
+    """Device time of edge_gather over one codes table and adjacency, 8
+    random frontier draws of [Q, E] rows in turn, as a search meets them
+    (and of its plain version with ``plain``), beside the bound of the
+    bytes each draw must move from its own distinct rows."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import edge_gather as eg
+
+    (cap, r), (q, w) = adj.shape, qc.shape
+    sels = [torch.randint(0, cap, (q, e), dtype=torch.int32, device="cuda", generator=g)
+            for _ in range(8)]
+    ms = cuda_time_ms(lambda i: eg.hamming_edge_gather(codes, adj, sels[i % 8], qc), 48)
+    plain_ms = (cuda_time_ms(lambda i: eg.hamming_edge_gather_plain(codes, adj, sels[i % 8], qc),
+                             16) if plain else None)
+    draws = []
+    for s in sels:
+        nbrs = adj[s.long()].clamp(0, cap - 1)
+        draws.append((int(torch.unique(s).numel()), int(torch.unique(nbrs).numel())))
+    nbytes = sum(eg.bound_bytes(q, e, r, w, a, b) for a, b in draws) // len(draws)
+    bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, q * e * r, w))
+    l2 = eg.l2_bytes(q, e, r, w)
+    say(f"  edge_gather timing at Q={q} E={e} W={w} cap={cap}: kernel {ms:.4f} ms"
+        + (f", plain {plain_ms:.4f} ms" if plain else "")
+        + f", bound {bound_ms:.4f} ms ({bound_by}: {how}); code-row bytes the lanes read, "
+        f"L2 hits included: {l2} B (for information, no rate claimed)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bound_how=how, l2_bytes=l2,
+                shape=dict(q=q, e=e, r=r, w=w, cap=cap, sel_rows=[a for a, _ in draws],
+                           nbr_rows=[b for _, b in draws]))
+
+
+def check_tier_widths(card: dict) -> dict:
+    """Phase 2 at the code widths of the 4- and 8-bit tiers
+    (TIER_EDGE_CASES, TIER_MATRIX_CASES): each kernel equal to its plain
+    version (the Hamming matrix's computed in query blocks of at most
+    2**26 word pairs), its device time beside its bound.  Returns the
+    times by kernel and shape."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import edge_gather as eg
+    from pgvectorscale_tpu_torch.ops import hamming_matrix as hm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    out = {"edge_gather": {}, "hamming_matrix": {}}
+    for q, e, r, w, cap in TIER_EDGE_CASES:
+        for offset in (False, True):
+            codes, adj, sel, qc = eg.check_tables(q, e, r, w, cap, offset, INVALID_EDGE_SHARE,
+                                                  "cuda", g)
+            ok = torch.equal(eg.hamming_edge_gather(codes, adj, sel, qc),
+                             eg.hamming_edge_gather_plain(codes, adj, sel, qc))
+            say(f"  edge_gather Q={q} E={e} R={r} W={w} cap={cap}"
+                f"{' offset' if offset else ''}: {'equal' if ok else 'DIFFERENT'}")
+            if not ok:
+                fail(f"edge_gather differs from its plain version at {(q, e, r, w, cap, offset)}")
+            if not offset:
+                t = time_edge_gather(codes, adj, qc, e, card, g, plain=False)
+                out["edge_gather"][f"Q={q} E={e} W={w} cap={cap}"] = {
+                    k: v for k, v in t.items() if k != "bound_how"}
+            del codes, adj, sel, qc
+    for q, n, w in TIER_MATRIX_CASES:
+        qc, cc, _ = hm.check_codes(q, n, w, None, "cuda", g)
+        got = hm.hamming_matrix(qc, cc)
+        step = max(1, (1 << 26) // (n * w))
+        ok = all(torch.equal(got[i : i + step], hm.hamming_matrix_plain(qc[i : i + step], cc))
+                 for i in range(0, q, step))
+        ms = cuda_time_ms(lambda i: hm.hamming_matrix(qc, cc), 20)
+        bound_ms, bound_by, how = bound(hm.bound_bytes(q, n, w), hamming_ops_ms(card, q * n, w))
+        out["hamming_matrix"][f"Q={q} N={n} W={w}"] = dict(ms=ms, bound_ms=bound_ms,
+                                                           bound_by=bound_by)
+        say(f"  hamming_matrix Q={q} N={n} W={w}: {'equal' if ok else 'DIFFERENT'}; kernel "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how})")
+        if not ok:
+            fail(f"hamming_matrix differs from its plain version at {(q, n, w)}")
+        del qc, cc, got
+    say(f"phase 2 kernel vs plain: both kernels equal at the tiers' widths "
+        f"({2 * len(TIER_EDGE_CASES)} edge_gather and {len(TIER_MATRIX_CASES)} "
+        f"hamming_matrix shapes)")
+    check_deadline("kernel vs plain")
+    return out
 
 
 def checksum(t) -> int:
@@ -660,7 +790,7 @@ def check_graph(index, label: str) -> str:
 def phase_build(vectors, phase: str, counts=None, refine_passes: int = 0, labels=None,
                 **config_kw):
     """``DiskannIndex.build`` of ``vectors`` (and their ``labels``) with
-    ``IndexConfig(DIM, **config_kw)``; seconds split at the progress marks
+    ``IndexConfig(vectors' width, **config_kw)``; seconds split at the progress marks
     (the finalize share includes the refinement passes), the graph checks,
     and, with ``counts``, the kernels' launches between the end of the
     waves and the end of the build."""
@@ -668,10 +798,11 @@ def phase_build(vectors, phase: str, counts=None, refine_passes: int = 0, labels
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig
 
-    config = IndexConfig(num_dimensions=DIM, **config_kw)
+    config = IndexConfig(num_dimensions=vectors.shape[1], **config_kw)
     label = ("plain" if not config.uses_sbq else config.build_distance) + (
         f", refine_passes={refine_passes}" if refine_passes else "") + (
-        f", labeled, {config.vector_dtype}" if labels is not None else "")
+        f", labeled, {config.vector_dtype}" if labels is not None else "") + (
+        f", {config.bits_per_dimension} bits/dim" if config.num_bits_per_dimension else "")
     marks = {}
 
     def progress(stage, done, total):
@@ -781,6 +912,7 @@ def search_point(index, qdev, params, gt, name: str, phase: str) -> dict:
 
     from pgvectorscale_tpu_torch.ops import edge_gather
 
+    nq = qdev.shape[0]
     before = edge_gather.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -790,14 +922,14 @@ def search_point(index, qdev, params, gt, name: str, phase: str) -> dict:
     if launches == 0:
         fail(f"{phase}: {name} did not launch edge_gather")
     s_ids = torch.sort(ids, dim=1).values
-    if (ids.shape != (NQ, 10) or not bool(torch.isfinite(dists).all())
+    if (ids.shape != (nq, 10) or not bool(torch.isfinite(dists).all())
             or bool(((ids < 0) | (ids >= index.count)).any())
             or bool((s_ids[:, 1:] == s_ids[:, :-1]).any())):
         fail(f"{phase}: {name} returned invalid results")
     recall = recall_at_10(ids, gt)
-    out = dict(recall=recall, qps=NQ / min(secs), seconds=secs, peak_bytes=peak,
+    out = dict(recall=recall, qps=nq / min(secs), seconds=secs, peak_bytes=peak,
                edge_gather_launches=launches, iters=index.last_search.iters)
-    say(f"  {name}: recall@10 {recall:.4f}, QPS {NQ / min(secs):.1f} (best of "
+    say(f"  {name}: recall@10 {recall:.4f}, QPS {nq / min(secs):.1f} (best of "
         f"{[round(t, 4) for t in secs]} s), {index.last_search.iters} beam "
         f"iterations, edge_gather launches {launches}, peak device memory {peak} B")
     check_deadline(phase)
@@ -2049,38 +2181,54 @@ def phase_host_graph(graph: dict) -> dict:
     return out
 
 
-def run_cli(*args, phase: str = "cli") -> tuple[list, float]:
-    """``python -m pgvectorscale_tpu_torch.cli <args>`` from the repository
-    root (on the card); its stdout's JSON lines and the seconds it took."""
+def run_cli(*args, subprocess_: bool = False, phase: str = "cli") -> tuple[list, float]:
+    """The port's CLI with ``args`` (on the card): ``cli.main(args)`` in
+    this process, its standard output captured, or with ``subprocess_``
+    ``python -m pgvectorscale_tpu_torch.cli <args>`` from the repository
+    root.  Its stdout's JSON lines and the seconds it took."""
+    import contextlib
+    import io
+
+    from pgvectorscale_tpu_torch import cli
+
     t = elapsed()
-    try:
-        proc = subprocess.run([sys.executable, "-m", "pgvectorscale_tpu_torch.cli", *args],
-                              cwd=ROOT, capture_output=True, text=True,
-                              timeout=max(DEADLINES[phase] - elapsed(), 1))
-    except subprocess.TimeoutExpired:
-        fail(f"{phase}: cli {args[0]} did not end before the phase's deadline")
+    if subprocess_:
+        try:
+            proc = subprocess.run([sys.executable, "-m", "pgvectorscale_tpu_torch.cli", *args],
+                                  cwd=ROOT, capture_output=True, text=True,
+                                  timeout=max(DEADLINES[phase] - elapsed(), 1))
+        except subprocess.TimeoutExpired:
+            fail(f"{phase}: cli {args[0]} did not end before the phase's deadline")
+        rc, stdout, stderr = proc.returncode, proc.stdout, proc.stderr
+    else:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(args))
+        stdout, stderr = buf.getvalue(), ""
     secs = elapsed() - t
-    if proc.returncode != 0:
-        fail(f"{phase}: cli {' '.join(args)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    if rc != 0:
+        fail(f"{phase}: cli {' '.join(args)} exited {rc}: {stderr[-3000:]}")
     try:
         if args[0] == "info":
-            lines = [json.loads(proc.stdout)]
+            lines = [json.loads(stdout)]
         else:
-            lines = [json.loads(ln) for ln in proc.stdout.strip().splitlines()]
+            lines = [json.loads(ln) for ln in stdout.strip().splitlines()]
     except json.JSONDecodeError:
-        fail(f"{phase}: cli {args[0]} printed a line that is not JSON: {proc.stdout[-2000:]}")
-    say(f"  cli {' '.join(a if len(a) < 40 else Path(a).name for a in args)}: {secs:.2f}s, "
+        fail(f"{phase}: cli {args[0]} printed a line that is not JSON: {stdout[-2000:]}")
+    say(f"  cli {' '.join(a if len(a) < 40 else Path(a).name for a in args)}"
+        f"{' (a subprocess)' if subprocess_ else ''}: {secs:.2f}s, "
         f"{json.dumps(lines[-1])[:400] if args[0] != 'search' else f'{len(lines)} lines'}")
     return lines, secs
 
 
 def phase_cli(vectors, queries, build_dir: Path) -> dict:
-    """Phase 17, the CLI, each command a subprocess on the card: ``bench``
-    at its defaults (recall at its widest L at least MIN_RECALL), then
-    build / info / search / add / delete / compact / info on CLI_N rows
-    (``info``: every row reachable, no orphan, both times).  The CLI's
-    search ids equal the library's on the same checkpoint (edge_gather
-    counted here)."""
+    """Phase 17, the CLI on the card through ``cli.main`` in this process:
+    ``bench`` at its defaults (recall at its widest L at least MIN_RECALL),
+    then build / info / search / add / delete / compact / info on CLI_N
+    rows (``info``: every row reachable, no orphan, both times); ``search``
+    runs as a subprocess (``python -m pgvectorscale_tpu_torch.cli``,
+    loading the kernels from csrc/_build/).  The CLI's search ids equal
+    the library's on the same checkpoint."""
     import numpy as np
     import torch
 
@@ -2088,8 +2236,8 @@ def phase_cli(vectors, queries, build_dir: Path) -> dict:
     from pgvectorscale_tpu_torch.ops import _build
 
     phase = "cli"
-    # The subprocesses load the kernels from csrc/_build/: put phase 1's
-    # libraries there (same names: a hash of source and flags).
+    # The search subprocess loads the kernels from csrc/_build/: put phase
+    # 1's libraries there (same names: a hash of source and flags).
     copied = []
     for rec in _build.build(KERNELS, build_dir=build_dir):
         dst = _build.BUILD_DIR / Path(rec["library"]).name
@@ -2116,7 +2264,7 @@ def phase_cli(vectors, queries, build_dir: Path) -> dict:
                         ["delete", str(idx), *[str(i) for i in range(0, 10 * CLI_DELETE, 10)]],
                         ["compact", str(idx)], ["info", str(idx)]):
                 key = cmd[0] if cmd[0] != "info" or "info" not in out else "info_after"
-                lines, out["seconds"][key] = run_cli(*cmd)
+                lines, out["seconds"][key] = run_cli(*cmd, subprocess_=cmd[0] == "search")
                 out[key] = len(lines) if cmd[0] == "search" else lines[-1]
                 if cmd[0] == "info":
                     info = lines[-1]
@@ -2220,6 +2368,161 @@ def phase_high_dim(counts) -> dict:
     return out
 
 
+def strict_ranks(query_codes, codes, gt, chunk: int = CEILING_CHUNK):
+    """For each query and each of its exact top-k rows, the number of rows
+    whose code distance to the query is strictly smaller than that row's:
+    int64[Q, k].  Each chunk's [chunk, N] distances come from the
+    Hamming-matrix kernel (its plain version on the CPU)."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops.hamming_matrix import hamming_matrix
+
+    out = []
+    for i in range(0, query_codes.shape[0], chunk):
+        d = hamming_matrix(query_codes[i : i + chunk], codes)
+        g = torch.gather(d, 1, gt[i : i + chunk].long())
+        out.append(torch.stack([(d < g[:, j : j + 1]).sum(dim=1) for j in range(g.shape[1])],
+                               dim=1))
+        del d
+    return torch.cat(out)
+
+
+def sbq_ceiling(ranks, rescores) -> dict:
+    """benchmarks/suite.py ``_sbq_ceiling``: the share of exact top-k rows
+    that fewer than rescore + k rows beat, strictly, in code distance (the
+    recall of a window of the rescore + k nearest codes under any
+    tie-break), for each rescore."""
+    k = ranks.shape[1]
+    return {r: float((ranks < r + k).double().mean()) for r in rescores}
+
+
+def phase_sift(counts):
+    """Phase 20: benchmarks/suite.py ``run_sift1m`` at SUITE_BITS=4: the
+    seeded "sift" corpus (SIFT_N x 128, SIFT_NQ queries), L2, L=100, 4 bits
+    a dimension (W = 16), library defaults otherwise, ``refine_passes=1``;
+    build seconds (ingest / waves / finalize + refine), launches, peak
+    device memory, graph checks; the exact top-10 through ``ExactIndex``;
+    then SIFT_POINTS, each held at the record's recall@10 less
+    SIFT_RECALL_MARGIN.  Returns (index, corpus, queries on the card,
+    exact top-10, results)."""
+    import numpy as np
+    import torch
+
+    from pgvectorscale_tpu_torch import ExactIndex, IndexConfig, QueryParams
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
+
+    t = elapsed()
+    vectors, queries = synthetic_corpus("sift", SIFT_N, SIFT_NQ, seed=SIFT_SEED)
+    vectors = np.ascontiguousarray(vectors)
+    out = dict(corpus_s=elapsed() - t)
+    say(f"phase 20 sift 4-bit 1M: corpus sift {vectors.shape} + {queries.shape} queries, seed "
+        f"{SIFT_SEED}, made in {out['corpus_s']:.2f}s")
+    start = counts()
+    torch.cuda.reset_peak_memory_stats()
+    index, out["build_s"] = phase_build(
+        vectors, "sift build", counts=counts, refine_passes=SIFT_REFINE,
+        distance_type=DistanceType.L2, search_list_size=100, num_bits_per_dimension=SIFT_BITS)
+    out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["build_launches"] = {k: v - start[k] for k, v in counts().items()}
+    w = index.config.num_code_words
+    refine_eg = out["build_s"]["launches_after_waves"]["edge_gather"]
+    say(f"  sift build: W={w}, launches {out['build_launches']} ({refine_eg} edge_gather in "
+        f"finalize+refine); peak device memory {out['build_peak_bytes']} B")
+    if w != 16 or out["build_launches"]["edge_gather"] == 0 or refine_eg == 0:
+        fail("sift build: W=16 and edge_gather launches in the waves and the refinement expected")
+
+    phase = "sift search"
+    t = elapsed()
+    qdev = torch.as_tensor(queries).cuda()
+    exact = ExactIndex.build(vectors, IndexConfig(num_dimensions=vectors.shape[1],
+                                                  distance_type=DistanceType.L2))
+    gt = exact.search(qdev, 10)[0]
+    del exact
+    torch.cuda.synchronize()
+    out["ground_truth_s"] = elapsed() - t
+    say(f"  sift ground truth: exact top-10 of {SIFT_NQ} queries over {SIFT_N} rows "
+        f"(ExactIndex) in {out['ground_truth_s']:.2f}s")
+    out["search"] = {}
+    for (l, rescore, e, strategy, vf), record in SIFT_POINTS.items():
+        params = QueryParams(search_list_size=l, rescore=rescore, expand=e,
+                             window_strategy=strategy, visit_factor=vf)
+        name = f"{strategy} L={l} rescore={rescore} E={e} visit_factor={vf}"
+        res = search_point(index, qdev, params, gt, name, phase)
+        res["record"] = record
+        out["search"][name] = res
+        say(f"    record (results/sift1m.jsonl) {record:.4f}: port - record "
+            f"{res['recall'] - record:+.4f}")
+        if res["recall"] < record - SIFT_RECALL_MARGIN:
+            fail(f"{phase}: recall@10 {res['recall']:.4f} at {name} is below the record "
+                 f"{record} less {SIFT_RECALL_MARGIN}")
+    return index, vectors, qdev, gt, out
+
+
+def phase_ceiling(index, vectors, qdev, gt) -> dict:
+    """Phase 20, outside the path: the strict-rank SBQ ceiling of the
+    index's 4-bit codes at CEILING_RECORD's rescores (fails off the record
+    by more than CEILING_TOL), and of a 2-bit encode of the same corpus
+    with the same statistics (no graph) beside it."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import hamming_matrix, sbq
+
+    before = hamming_matrix.launches
+    torch.cuda.synchronize()
+    t = elapsed()
+    stats, bits = index.sbq_stats, index.config.bits_per_dimension
+    ranks = strict_ranks(sbq.encode(qdev, stats, bits), index.arrays.codes[: index.count], gt)
+    out = dict(ceiling=sbq_ceiling(ranks, CEILING_RECORD))
+    torch.cuda.synchronize()
+    out["seconds"] = elapsed() - t
+    vdev = torch.from_numpy(vectors).cuda()
+    codes2 = torch.cat([sbq.encode(vdev[i : i + (1 << 17)], stats, 2)
+                        for i in range(0, vdev.shape[0], 1 << 17)])
+    del vdev
+    out["ceiling_2bit"] = sbq_ceiling(strict_ranks(sbq.encode(qdev, stats, 2), codes2, gt),
+                                      CEILING_RECORD)
+    out["hamming_matrix_launches"] = hamming_matrix.launches - before
+    for r, rec in CEILING_RECORD.items():
+        say(f"  sift ceiling at rescore {r}: {bits}-bit {out['ceiling'][r]:.4f} (record "
+            f"{rec}, port - record {out['ceiling'][r] - rec:+.4f}); 2-bit encode "
+            f"{out['ceiling_2bit'][r]:.4f} (results/sift1m_2bit_r4.jsonl, one tie-break: "
+            f"{CEILING_2BIT_RECORD[r]})")
+    say(f"  sift ceiling: {out['seconds']:.2f}s for the {bits}-bit ranks, "
+        f"{out['hamming_matrix_launches']} hamming_matrix launches (W=16 and W=8, chunks of "
+        f"{CEILING_CHUNK} queries)")
+    off = {r: out["ceiling"][r] - rec for r, rec in CEILING_RECORD.items()
+           if abs(out["ceiling"][r] - rec) > CEILING_TOL}
+    if off:
+        fail(f"sift ceiling: off the JAX package's record by more than {CEILING_TOL}: {off}")
+    check_deadline("sift search")
+    return out
+
+
+def phase_wide(vectors, queries, counts) -> dict:
+    """Phase 21: phase 6's storage build of the 100k corpus at WIDE_BITS
+    bits a dimension (W = 192): build seconds, launches (both kernels in
+    the build), peak device memory, graph checks; phase 4's searches
+    (recall floor MIN_RECALL at rescore 300)."""
+    import torch
+
+    out = {}
+    start = counts()
+    torch.cuda.reset_peak_memory_stats()
+    index, out["build_s"] = phase_build(vectors, "8-bit build", build_distance="storage",
+                                        num_bits_per_dimension=WIDE_BITS)
+    out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["build_launches"] = {k: v - start[k] for k, v in counts().items()}
+    w = index.config.num_code_words
+    say(f"  8-bit build: W={w}, launches {out['build_launches']}; peak device memory "
+        f"{out['build_peak_bytes']} B")
+    if w != DIM * WIDE_BITS // 32 or min(out["build_launches"].values()) == 0:
+        fail("8-bit build: W=192 and launches of both kernels expected")
+    out["search"], out["search_peak_bytes"] = phase_search(index, vectors, queries,
+                                                           "8-bit search")
+    return out
+
+
 def sync_all() -> None:
     """Synchronize every card (a mesh may span them)."""
     import torch
@@ -2258,17 +2561,19 @@ def check_shards(index, label: str) -> str:
             f"{'; '.join(parts)} (r_max {r_max})")
 
 
-def phase_sharded_scale(vectors, queries, gt, single: dict, counts) -> dict:
-    """Phase 19, 1M: phase 13's corpus and config row-sharded over SHARDS
-    mesh positions (``ShardedDiskannIndex.build``; one shard a card where
-    there are SHARDS cards, else all on cuda:0): seconds, peak device
-    memory of each card, the shards' graph checks and placement; then
-    SHARD_POINTS, recall@10 of the external ids against phase 13's exact
-    top-10, held at phase 13's single-device recall at the same point
-    minus SHARD_RECALL_MARGIN; QPS best of 3; edge_gather launched."""
+def phase_sharded_scale(vectors, queries, single: dict, counts) -> dict:
+    """Phase 19, scale: phase 13's config over ``vectors`` (the first
+    SHARD_N rows of its corpus) row-sharded over SHARDS mesh positions
+    (``ShardedDiskannIndex.build``; one shard a card where there are SHARDS
+    cards, else all on cuda:0): seconds, peak device memory of each card,
+    the shards' graph checks and placement; then SHARD_POINTS, recall@10
+    of the external ids against the exact top-10 over these rows
+    (``ExactIndex``), held at phase 13's single-device recall over 1M rows
+    at the same point minus SHARD_RECALL_MARGIN; QPS best of 3;
+    edge_gather launched."""
     import torch
 
-    from pgvectorscale_tpu_torch import IndexConfig, QueryParams, ShardedDiskannIndex
+    from pgvectorscale_tpu_torch import ExactIndex, IndexConfig, QueryParams, ShardedDiskannIndex
     from pgvectorscale_tpu_torch.ops import edge_gather
     from pgvectorscale_tpu_torch.parallel.mesh import make_mesh
 
@@ -2305,6 +2610,8 @@ def phase_sharded_scale(vectors, queries, gt, single: dict, counts) -> dict:
 
     phase = "sharded search"
     qdev = torch.as_tensor(queries).cuda()
+    gt = ExactIndex.build(vectors, config).search(qdev, 10)[0]
+    torch.cuda.empty_cache()
     out["search"] = {}
     for l, rescore, e, strategy, vf in SHARD_POINTS:
         params = QueryParams(search_list_size=l, rescore=rescore, expand=e,
@@ -2608,10 +2915,10 @@ def phase_sharded_processes(vectors, queries, build_dir: Path) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only-sharded"]):
-        print("usage: chip_smoke.py [--only-sharded]", file=sys.stderr)
+    if argv not in ([], ["--only-sharded"], ["--only-tiers"]):
+        print("usage: chip_smoke.py [--only-sharded | --only-tiers]", file=sys.stderr)
         return 2
-    only_sharded = bool(argv)
+    only = argv[0] if argv else None
     if not (ROOT / "pgvectorscale_tpu_torch").is_dir():
         print("chip_smoke.py: the pgvectorscale_tpu_torch package is not beside "
               "this script", file=sys.stderr)
@@ -2637,6 +2944,37 @@ def main(argv=None) -> int:
     def read_counts() -> dict:
         return {k: m.launches for k, m in modules.items()}
 
+    def run_tiers(vectors, queries, two_bit=None) -> dict:
+        """Phases 20 and 21, each path counted from 0; ``two_bit``: phase
+        6's searches, printed beside phase 21's."""
+        reset_counts()  # the sift 4-bit 1M path starts here
+        sift_index, sift_vectors, sift_q, sift_gt, sift = phase_sift(read_counts)
+        paths["sift 4-bit 1M"] = read_counts()  # the sift 4-bit 1M path ends here
+        peaks["sift build"] = sift["build_peak_bytes"]
+        peaks["sift search"] = max(v["peak_bytes"] for v in sift["search"].values())
+        say(f"phase 20 sift 4-bit 1M: launches {paths['sift 4-bit 1M']} "
+            f"({sift['build_launches']} in the build); peak device memory of the build "
+            f"{peaks['sift build']} B, of a search up to {peaks['sift search']} B")
+        sift["ceiling"] = phase_ceiling(sift_index, sift_vectors, sift_q, sift_gt)  # outside
+        del sift_index, sift_vectors, sift_q, sift_gt
+        torch.cuda.empty_cache()
+
+        reset_counts()  # the 8-bit storage path starts here
+        wide = phase_wide(vectors, queries, read_counts)
+        paths["8-bit storage 100k"] = read_counts()  # the 8-bit storage path ends here
+        peaks["8-bit build"] = wide["build_peak_bytes"]
+        peaks["8-bit search"] = wide["search_peak_bytes"]
+        beside = ("not run" if two_bit is None else
+                  f"{two_bit[50]['recall']:.4f} / {two_bit[300]['recall']:.4f}")
+        say(f"phase 21 8-bit storage 100k: recall@10 {wide['search'][50]['recall']:.4f} "
+            f"(rescore 50), {wide['search'][300]['recall']:.4f} (rescore 300); phase 6, 2 "
+            f"bits: {beside}; launches {paths['8-bit storage 100k']}; peak device memory "
+            f"of the build {peaks['8-bit build']} B")
+        torch.cuda.empty_cache()
+        return {"sift_4bit_1m": sift,
+                "wide_8bit_100k": {**wide, "search": {str(k): v for k, v in
+                                                      wide["search"].items()}}}
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, count, smi_line, card = phase_device()
@@ -2649,13 +2987,18 @@ def main(argv=None) -> int:
         phase_kernel_build(build_dir)
         cap_main = ((N + 1023) // 1024) * 1024
         timing = phase_kernel_check(cap_main, card)
+        tier_widths = check_tier_widths(card)
 
         vectors, queries = synthetic_corpus("cohere", N, NQ, seed=SEED)
         vectors = np.ascontiguousarray(vectors)
         say(f"  corpus: cohere {vectors.shape} + {queries.shape} queries, seed {SEED}")
-        if only_sharded:
+        if only == "--only-tiers":
+            summary = {"card": card, "launches_by_path": paths, "tier_widths_ms": tier_widths,
+                       **run_tiers(vectors, queries), "peak_memory_bytes": peaks,
+                       "elapsed_s": elapsed()}
+        elif only == "--only-sharded":
             reset_counts()  # the int8 scale path starts here
-            s_index, scale_vectors, s_queries, _, _, scale_gt, scale = phase_scale(read_counts)
+            s_index, scale_vectors, s_queries, _, _, _, scale = phase_scale(read_counts)
             paths["int8 scale"] = read_counts()  # the int8 scale path ends here
             del s_index
             torch.cuda.empty_cache()
@@ -2790,7 +3133,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
             reset_counts()  # the int8 scale path starts here
-            s_index, scale_vectors, s_queries, flag, filtered_gt, scale_gt, scale = phase_scale(
+            s_index, scale_vectors, s_queries, flag, filtered_gt, _, scale = phase_scale(
                 read_counts)
             paths["int8 scale"] = read_counts()  # the int8 scale path ends here
             peaks["int8 build"] = scale["build_peak_bytes"]
@@ -2839,7 +3182,8 @@ def main(argv=None) -> int:
             cli = phase_cli(vectors, queries, build_dir)
             paths["host graph and tools"] = read_counts()  # the path ends here
             say(f"phase 17 host graph and tools: launches {paths['host graph and tools']} (the "
-                f"library's search of the CLI's checkpoint; the CLI's subprocesses count their own)")
+                f"CLI's commands in this process and the library's search of its checkpoint; the "
+                f"search subprocess counts its own)")
             if paths["host graph and tools"]["edge_gather"] == 0:
                 fail("phase 17 did not launch edge_gather")
             torch.cuda.empty_cache()
@@ -2849,6 +3193,7 @@ def main(argv=None) -> int:
             paths["high dim"] = read_counts()  # the high-dim path ends here
             peaks["high dim build"] = high_dim["build_peak_bytes"]
             say(f"phase 18 high dim: launches {paths['high dim']}")
+            tiers = run_tiers(vectors, queries, s_search)
             summary = {
                 "card": card, "launches_by_path": paths,
                 "kernel_timing_shapes": {k: timing[k]["shape"] for k in KERNELS},
@@ -2872,25 +3217,27 @@ def main(argv=None) -> int:
                 "build_stats": build_stats, "search_trace": trace, "search_stats": search_stats,
                 "durable_life_cycle": durable, "host_graph": host_graph, "cli": cli,
                 "debug_helpers": debug_helpers, "high_dim": high_dim,
+                "tier_widths_ms": tier_widths, **tiers,
                 "elapsed_s": elapsed(),
             }
 
-        reset_counts()  # the sharded 1M path starts here
-        sharded = phase_sharded_scale(scale_vectors, s_queries, scale_gt, scale["search"],
-                                      read_counts)
-        paths["sharded 1M"] = read_counts()  # the sharded 1M path ends here
-        say(f"phase 19 sharded 1M: launches {paths['sharded 1M']}")
-        del scale_vectors
-        torch.cuda.empty_cache()
-        reset_counts()  # the sharded life-cycle path starts here
-        sharded["life_cycle"] = phase_sharded_life_cycle(vectors, queries, read_counts)
-        paths["sharded life cycle"] = read_counts()  # the sharded life cycle ends here
-        say(f"phase 19 sharded life cycle: launches {paths['sharded life cycle']}")
-        if min(paths["sharded life cycle"].values()) == 0:
-            fail("the sharded life cycle did not launch both kernels")
-        torch.cuda.empty_cache()
-        sharded["processes"] = phase_sharded_processes(vectors, queries, build_dir)
-        summary.update(sharded=sharded, elapsed_s=elapsed())
+        if only != "--only-tiers":
+            reset_counts()  # the sharded scale path starts here
+            sharded = phase_sharded_scale(scale_vectors[:SHARD_N], s_queries, scale["search"],
+                                          read_counts)
+            paths["sharded scale"] = read_counts()  # the sharded scale path ends here
+            say(f"phase 19 sharded scale: launches {paths['sharded scale']}")
+            del scale_vectors
+            torch.cuda.empty_cache()
+            reset_counts()  # the sharded life-cycle path starts here
+            sharded["life_cycle"] = phase_sharded_life_cycle(vectors, queries, read_counts)
+            paths["sharded life cycle"] = read_counts()  # the sharded life cycle ends here
+            say(f"phase 19 sharded life cycle: launches {paths['sharded life cycle']}")
+            if min(paths["sharded life cycle"].values()) == 0:
+                fail("the sharded life cycle did not launch both kernels")
+            torch.cuda.empty_cache()
+            sharded["processes"] = phase_sharded_processes(vectors, queries, build_dir)
+            summary.update(sharded=sharded, elapsed_s=elapsed())
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 

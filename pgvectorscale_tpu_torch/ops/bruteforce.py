@@ -14,7 +14,8 @@ import torch
 from ..config import DistanceType
 from ..distance import distance_matrix
 
-_QUERY_BLOCK = 1024  # queries per [block, N] distance matrix
+_QUERY_BLOCK = 1024  # queries per [block, N] distance matrix, at most
+_BLOCK_ELEMS = 1 << 28  # [block, N] elements: a 1 GiB float32 matrix
 
 
 def brute_force_search(
@@ -27,11 +28,12 @@ def brute_force_search(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k: (ids i32[Q, k], dists f32[Q, k]) on the inputs' device.
     Ties keep the lowest id first (a stable sort, as ``lax.top_k``);
-    invalid rows score +inf.  Queries go in blocks of 1,024 to bound the
-    [Q, N] matrix."""
+    invalid rows score +inf.  Queries go in blocks of at most 1,024, and
+    of at most 2**28 distances, to bound the [Q, N] matrix and its sort."""
+    block = max(1, min(_QUERY_BLOCK, _BLOCK_ELEMS // max(points.shape[0], 1)))
     ids, dists = [], []
-    for i in range(0, queries.shape[0], _QUERY_BLOCK):
-        d = distance_matrix(queries[i : i + _QUERY_BLOCK], points, distance_type)
+    for i in range(0, queries.shape[0], block):
+        d = distance_matrix(queries[i : i + block], points, distance_type)
         d = torch.where(valid[None, :], d, torch.inf)
         s, order = torch.sort(d, dim=1, stable=True)
         ids.append(order[:, :k].to(torch.int32))

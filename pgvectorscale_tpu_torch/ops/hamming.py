@@ -48,3 +48,8 @@ def hamming_gather(
     gathered = codes[ids.clamp_min(0).long()]  # [Q, R, W]
     x = torch.bitwise_xor(gathered, query_codes[:, None, :])
     return torch.sum(popcount32(x), dim=-1, dtype=torch.int32)
+
+
+def hamming_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-paired Hamming: i32[N, W], i32[N, W] -> i32[N]."""
+    return torch.sum(popcount32(torch.bitwise_xor(a, b)), dim=-1, dtype=torch.int32)
