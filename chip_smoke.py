@@ -28,53 +28,68 @@ Phases, each reported on a timestamped, flushed line:
    Then both kernels at the 4- and 8-bit tiers' code widths
    (TIER_EDGE_CASES: W = 16 and 32 over 1M slots, W = 192 over 100k,
    aligned and offset; TIER_MATRIX_CASES: W = 16, 32, 25 and 192), each
-   equal to its plain version and timed beside its bound.
+   equal to its plain version and timed beside its bound.  The two loop
+   kernels: beam_search bit-equal to ``beam_search_plain`` on every output
+   at BEAM_CASES (the search shapes at E = 4 and 2, the "scored" window
+   of 1,510, the "beam" strategy's L = 2,010 in shared memory and in the
+   scratch buffer, 1- and 2-label filtered searches, a build wave with its
+   history, W = 16, 192 and 500, over random graphs), prune_scan bit-equal
+   to its plain version at PRUNE_CASES (B = 4,096, C = 166 and 332,
+   unlabeled and labeled); each timed (kernel, plain, one query or row
+   alone) beside its bound.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
    <= r_max, and prints ``build_stats`` (fails without a wave).
 4. search: 1,024 queries at k=10, L=100, rescore 50 and 300 through
    ``DiskannIndex.search``; QPS, recall@10 against ``ExactIndex``
-   (fails below 0.80 at rescore 300) and the edge-gather kernel's
-   launches on this path (fails at 0); one more search inside
-   ``stats.profiler_trace``, whose trace must hold one edge_gather
+   (fails below 0.80 at rescore 300); the build must launch beam_search
+   and prune_scan, the searches beam_search; one more search inside
+   ``stats.profiler_trace``, whose trace must hold one beam_search
    kernel for each launch.
-5. agreement: the beam search on the card equals the same beam search
+5. loops agreement (outside the path): on phase 3's index, a search at
+   rescore 300 and a searched wave of 4,096 rows through the two loop
+   kernels and through their plain versions on the card: the search's
+   ids, distances and SearchResult, and the wave's adjacency, bit-equal.
+   agreement: the beam search on the card equals the same beam search
    run by the plain versions on the CPU, for 64 queries; so do
    ``last_search_stats`` of ``DiskannIndex.search`` on those queries, and
    ``estimate_query_cost`` answers "measured".
 6. storage build and search: the same corpus and queries with
    build_distance "storage" (the reference's build: Hamming everywhere);
-   the same graph checks and recall floor, and both kernels launched.
+   the same graph checks and recall floor, and the Hamming matrix,
+   beam_search and prune_scan launched.
 5b. windows, on the exact-prune index of phase 3: the "expand", "beam" and
    "scored" rescore windows at L=100, rescore 300 (recall floor, valid
    results, no id twice in a row), then the JAX package's ``bench.py``
    wide points, L=200, rescore 1,500, E=2, for all three (recall, QPS
-   best of 3, peak device memory); edge_gather must launch in every
+   best of 3, peak device memory); beam_search must launch in every
    search.
 6. storage build and search: the same corpus and queries with
    build_distance "storage" (the reference's build: Hamming everywhere);
-   the same graph checks and recall floor, and both kernels launched.
+   the same graph checks and recall floor, and the Hamming matrix,
+   beam_search and prune_scan launched.
 7. life cycle, 768 wide, storage build: ``build`` on 2,048 rows, 8
    ``add`` batches of 4,096 (the first one's seed wave launches the
    Hamming matrix), ``delete`` of 10%, an ``add`` of 2,048 that lands on
    tombstones, a search that returns no deleted row and holds the recall
    floor over the live rows, ``save``/``load`` with bit-equal search
-   results, and ``compact`` (count == live rows, all reachable).  The
+   results, and ``compact`` (count == live rows, all reachable), with
+   the Hamming matrix, beam_search and prune_scan launched.  The
    reuse add must leave a reader's ``arrays`` (checksum of every tensor)
    and ``external_ids`` as they were and publish new arrays.
 8. refine: the exact-prune build of phase 3 with ``refine_passes=1``
-   (seconds split into ingest / waves / finalize+refine, edge_gather
+   (seconds split into ingest / waves / finalize+refine, beam_search
    launched inside the refinement pass), the graph checks, and the search
    of phase 4 beside the unrefined build's recall.
 9. exact: an SBQ build with build_distance "exact" (full-precision
    traversal) of the first 95,904 rows, the search of phase 4 over them,
-   then one ``add`` of the last 4,096 rows and the graph checks;
-   edge_gather launches in the search only.
+   then one ``add`` of the last 4,096 rows and the graph checks; the
+   build and the add launch only prune_scan, the search beam_search.
 10. plain: a plain-storage cosine build of the corpus (full-precision
    traversal, no codes) and a search at L=100 (no rescore: the traversal
-   distances are exact), recall against ``ExactIndex``; no kernel
-   launches on this path.  Then, outside the path, the device time of
+   distances are exact), recall against ``ExactIndex``; no Hamming or
+   beam-search kernel launches on this path, only prune_scan.  Then, outside the path, the device time of
    full-precision traversal's gather-dot at a build and a search step.
 11. filtered: the JAX suite's filtered deployment (benchmarks/suite.py
    ``run_filtered``: 100 labels with popularity 1/rank, 1-2 a row, bf16
@@ -84,7 +99,7 @@ Phases, each reported on a timestamped, flushed line:
    E=4 and at the suite's first point, L=150, rescore 300, E=2 (recall@10
    against a filtered exact top-10 computed on the card, floor 0.50 at
    the suite's point; QPS best of 3; every result carries a query label,
-   no id twice; edge_gather launched in the build and every search); 64
+   no id twice; beam_search launched in the build and every search); 64
    queries on each of the 5 rarest labels get 10 ids carrying it, and
    each label's reach (its rows a filtered search can reach from its
    start nodes, a host BFS) stays at or above its measured floor; label
@@ -111,7 +126,7 @@ Phases, each reported on a timestamped, flushed line:
    equal under the two; then scale.py's five (L, rescore, E, strategy,
    visit_factor) points: recall@10 against the exact top-10 over the
    float32 corpus (computed on the card in query chunks), QPS best of 3,
-   peak device memory, edge_gather launches (> 0 each); the floor
+   peak device memory, beam_search launches (> 0 each); the floor
    SCALE_MIN_RECALL holds at the widest "expand" point.  Then, outside the
    path, the rescore (``index._exact_batch_distances``) at
    benchmarks/kernels.py's "rescore-tiers" shape (n = 1M, d = 768,
@@ -135,8 +150,8 @@ Phases, each reported on a timestamped, flushed line:
 16. durable life cycle: a child process on the card (loading phase 1's
    kernels) builds phase 7's index, calls ``enable_durability``, runs
    phase 7's adds, delete and reuse add (10 journal records) and kills
-   itself with SIGKILL; ``DiskannIndex.load`` replays the journal (both
-   kernels launched) to phase 7's index after its reuse add: count, live
+   itself with SIGKILL; ``DiskannIndex.load`` replays the journal (the
+   Hamming matrix, beam_search and prune_scan launched) to phase 7's index after its reuse add: count, live
    rows, external ids, a checksum of every tensor and the searches at
    rescore 50 and 300, bit-equal.  Then ``enable_durability`` with
    ``auto_checkpoint_every`` 8,192 and two adds of 4,096: the journal is
@@ -157,7 +172,7 @@ Phases, each reported on a timestamped, flushed line:
 18. high dim: a 16,000-dim SBQ index (cosine, R=16, L=32, 500-word codes)
    of 8,192 low-rank rows, max_wave 1,024 (the re-measure's rows: 4.19
    GB); recall@10 against ``ExactIndex`` at the JAX test's L=50, rescore
-   100 and at L=100, rescore 200 (floor 0.9 there), edge_gather launched
+   100 and at L=100, rescore 200 (floor 0.9 there), beam_search launched
    at W=500, the peak device memory.
 19. sharded: ``ShardedDiskannIndex`` on a mesh of SHARDS = 4 positions
    (``parallel.mesh.make_mesh``: one shard a card on a machine with four
@@ -169,14 +184,15 @@ Phases, each reported on a timestamped, flushed line:
    position's device; scale.py's first two "expand" points, recall@10 of
    the external ids (against the exact top-10 over those rows) at no
    less than phase 13's over 1M rows at the same point minus 0.05, QPS
-   best of 3, edge_gather launched.  Life cycle:
+   best of 3, beam_search launched.  Life cycle:
    phase 7's storage config and sizes on the mesh (the shards' seed waves
    launch the Hamming matrix), delete through ``delete_external``, the
    reuse add leaving a reader's shards as they were, searches with no
    deleted row and the recall floor, a 50-row ``search_iter`` stream,
    save -> load bit-equal, compact keeping the live external ids,
    ``create_index`` on the mesh, and ``enable_durability`` over two adds
-   and a delete replayed by ``load`` bit-equal; both kernels launched.
+   and a delete replayed by ``load`` bit-equal; the Hamming matrix,
+   beam_search and prune_scan launched.
    Processes: on a machine with two cards or more, two ``nccl`` processes
    (one card each, the PGVS_TPU_* variables) build and search their
    shards of the life-cycle rows and must equal the one-process index;
@@ -186,8 +202,8 @@ Phases, each reported on a timestamped, flushed line:
    seeded "sift" corpus, 1,000,000 x 128 and 2,048 queries, L2, L=100, 4
    bits a dimension (W = 16), ``refine_passes=1``, library defaults
    otherwise; build seconds (ingest / waves / finalize + refine), peak
-   device memory, launches (edge_gather in the waves and in the
-   refinement), the graph checks; the exact top-10 through
+   device memory, launches (beam_search and prune_scan in the build,
+   beam_search in the refinement), the graph checks; the exact top-10 through
    ``ExactIndex``; SIFT_POINTS of the suite's sweep, recall@10 against it
    (each at least the JAX package's record in results/sift1m.jsonl less
    0.03), QPS best of 3, peak memory, launches.  Then, outside the path,
@@ -198,7 +214,8 @@ Phases, each reported on a timestamped, flushed line:
 21. 8-bit storage 100k: phase 6's corpus, queries and storage build at 8
    bits a dimension (W = 192, 6,144 code bits: the storage prune's
    wide-code blocks, the seed wave's Hamming matrix at W = 192); build
-   seconds, peak device memory, both kernels launched, the graph checks;
+   seconds, peak device memory, the Hamming matrix, beam_search and
+   prune_scan launched, the graph checks;
    phase 4's searches (floor 0.80 at rescore 300) beside phase 6's 2-bit
    recall.
 
@@ -221,6 +238,7 @@ JSON record, the card's name and power limit, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -237,26 +255,27 @@ BUDGET_S = 600
 # Seconds since start by which each phase must have ended.
 DEADLINES = {
     "device": 60,
-    "kernel build": 120,
-    "kernel vs plain": 140,
-    "build": 160,
-    "search": 168,
-    "agreement": 173,
-    "windows": 185,
-    "storage build": 200,
-    "storage search": 206,
-    "life cycle": 222,
-    "refine build": 240,
-    "refine search": 246,
-    "exact build": 258,
-    "exact search": 264,
-    "exact add": 270,
-    "plain build": 282,
-    "plain search": 288,
-    "filtered build": 290,
-    "filtered search": 300,
-    "filtered agreement": 305,
-    "filtered life cycle": 320,
+    "kernel build": 130,
+    "kernel vs plain": 175,
+    "build": 195,
+    "search": 203,
+    "loops agreement": 208,
+    "agreement": 208,
+    "windows": 220,
+    "storage build": 235,
+    "storage search": 241,
+    "life cycle": 257,
+    "refine build": 275,
+    "refine search": 281,
+    "exact build": 293,
+    "exact search": 299,
+    "exact add": 305,
+    "plain build": 317,
+    "plain search": 323,
+    "filtered build": 325,
+    "filtered search": 335,
+    "filtered agreement": 340,
+    "filtered life cycle": 355,
     "int8 build": 360,
     "int8 search": 375,
     "rescore tiers": 380,
@@ -324,7 +343,15 @@ MIN_FILTERED_RECALL = 0.50
 # as in the port), so its queries must get min(10, reach) rows.
 RARE_LABELS, RARE_QUERIES = 5, 64
 RARE_REACH_FLOOR = {96: 209, 99: 271, 95: 269, 94: 277, 98: 1}
-KERNELS = ("edge_gather", "hamming_matrix")
+KERNELS = ("edge_gather", "hamming_matrix", "beam_search", "prune_scan")
+# The kernels every build path with searched waves launches: the beam
+# search (each searched wave) and the prune (every wave).  Since the beam
+# loop is a kernel, edge_gather serves only the "expand" rescore window and
+# the streaming iterator.
+BUILD_KERNELS = ("beam_search", "prune_scan")
+# The life cycles' kernels: seed waves through the Hamming matrix, then the
+# build kernels.
+LIFE_KERNELS = ("hamming_matrix",) + BUILD_KERNELS
 # Phase 13, benchmarks/scale.py's deployment: rows (cut from 5,000,000),
 # seed, and the (L, rescore, E, strategy, visit_factor) points; the recall
 # floor holds at the widest "expand" point.  Ground truth runs in chunks
@@ -412,6 +439,47 @@ SIFT_CAP = ((SIFT_N + 1023) // 1024) * 1024
 TIER_EDGE_CASES = [(1024, 4, 65, 16, SIFT_CAP), (1024, 4, 65, 32, SIFT_CAP),
                    (256, 4, 65, 192, ((N + 1023) // 1024) * 1024)]
 TIER_MATRIX_CASES = [(256, 65536, 16), (4096, 8192, 32), (333, 1000, 25), (4096, 8192, 192)]
+# Phase 2, the beam-search kernel against beam_search_plain: (name,
+# check_inputs arguments, search arguments).  The main path's search shapes
+# (Q=1,024, L=100, visit budget 166, E=4 and 2, W=48, R_max=65 over phase
+# 3's cap), bench.py's wide point with the "scored" window (L=416 and
+# Wn=1,510 at L=200, rescore 1,500), the "beam" strategy at SIFT's widest
+# point (L=2,010, budget 1,216), in shared memory and in the scratch buffer
+# (the wrapper's shared_limit at 0), 1- and 2-label filtered searches, a
+# build wave (B=4,096, the history kept) and W=16 (over phase 20's 1M
+# slots), 192 and 500.  "search" and "build wave" are timed.
+BEAM_CASES = [
+    ("search", dict(q=1024, w=48, r=65), dict(search_list_size=100, max_iters=166,
+                                               expand_factor=4, track_hist=False)),
+    ("search E=2", dict(q=1024, w=48, r=65), dict(search_list_size=100, max_iters=166,
+                                                   expand_factor=2, track_hist=False)),
+    ("scored window", dict(q=256, w=48, r=65),
+     dict(search_list_size=416, max_iters=316, expand_factor=2, track_hist=False,
+          window_n=1510)),
+    ("beam L=2010", dict(q=128, w=16, r=65),
+     dict(search_list_size=2010, max_iters=1216, expand_factor=2, track_hist=False)),
+    ("1-label", dict(q=1024, w=48, r=65, s=2, lm=2, lq=1),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=False)),
+    ("2-label", dict(q=1024, w=48, r=65, s=3, lm=2, lq=2),
+     dict(search_list_size=150, max_iters=241, expand_factor=2, track_hist=False)),
+    ("build wave", dict(q=4096, w=48, r=65), dict(search_list_size=100, max_iters=166,
+                                                   expand_factor=4, track_hist=True)),
+    ("W=16 1M", dict(q=1024, w=16, r=65, cap=SIFT_CAP),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=False)),
+    ("W=192", dict(q=256, w=192, r=65), dict(search_list_size=100, max_iters=166,
+                                              expand_factor=4, track_hist=False)),
+    ("W=500", dict(q=64, w=500, r=21, cap=4096), dict(search_list_size=50, max_iters=91,
+                                                       expand_factor=2, track_hist=True)),
+]
+# Phase 2, the prune kernel against its plain version: (B, C, Lm) at a
+# wave's B and R: C=166 (a searched wave's deduped visit history), C=332
+# (a labeled wave's two histories), unlabeled and with 2 labels.  The
+# first is timed.
+PRUNE_CASES = [(4096, 166, 0), (4096, 332, 0), (4096, 166, 2), (4096, 332, 2)]
+PRUNE_R, PRUNE_MAX_ALPHA = 50, 1.2
+# Per-SM f32 operations a clock (CUDA C Programming Guide, compute
+# capability 9.0): the prune's factor arithmetic.
+F32_OPS_PER_CLK_SM = 128
 
 
 def elapsed() -> float:
@@ -434,6 +502,13 @@ def check_deadline(phase: str) -> None:
         say(f"FAIL: phase '{phase}' passed its deadline of {limit}s")
         sys.stderr.flush()
         sys.exit(3)
+
+
+def require(launches: dict, kernels, what: str) -> None:
+    """Fail unless each of ``kernels`` launched at least once in ``launches``."""
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        fail(f"{what} did not launch {', '.join(missing)}")
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -512,8 +587,10 @@ def bound(nbytes: int, ops: dict) -> tuple[float, str, str]:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     by = "bytes" if bytes_ms >= ops["ms"] else "operations"
     how = (f"bytes {bytes_ms:.4f} ms ({nbytes} B); operations {ops['ms']:.4f} ms "
-           f"by {ops['way']} (CUDA cores {ops['cores_ms']:.4f} ms, 1-bit tensor "
-           f"cores {ops['tensor_ms']:.4f} ms)")
+           f"by {ops['way']}")
+    if ops.get("tensor_ms") is not None:
+        how += (f" (CUDA cores {ops['cores_ms']:.4f} ms, 1-bit tensor cores "
+                f"{ops['tensor_ms']:.4f} ms)")
     return max(bytes_ms, ops["ms"]), by, how
 
 
@@ -532,7 +609,175 @@ def phase_kernel_build(build_dir: Path) -> None:
 
 def phase_kernel_check(cap_main: int, card: dict) -> dict:
     return {"edge_gather": check_edge_gather(cap_main, card),
-            "hamming_matrix": check_hamming_matrix(card)}
+            "hamming_matrix": check_hamming_matrix(card),
+            "beam_search": check_beam_search(cap_main, card),
+            "prune_scan": check_prune_scan(card)}
+
+
+def event_ms(fn) -> float:
+    """Device time of one call of ``fn`` between two CUDA events, for a
+    plain loop that reads the device from the host each step (it cannot
+    queue behind a device sleep)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def max_abs_diff(a, b) -> float:
+    """Largest |a - b| over two equal-shape tensors, +inf - +inf as 0."""
+    import torch
+
+    d = (a.double() - b.double()).abs()
+    return float(torch.nan_to_num(d, nan=0.0).max()) if d.numel() else 0.0
+
+
+def check_beam_search(cap_main: int, card: dict) -> dict:
+    """The beam-search kernel against ``beam_search_plain`` on the card at
+    every BEAM_CASES shape, over random graphs with INVALID_EDGE_SHARE of
+    the slots empty: every output bit-equal.  The timed shapes: the
+    kernel's device time (CUDA events behind the device sleep), the plain
+    loop's (events around one call), one query's loop alone (Q=1: the
+    chain of dependent iterations) and the bound from the search's own
+    visits (``ops.beam_search.bound_bytes``: distinct frontier rows,
+    distinct neighbour rows, inputs and outputs once; operations: the
+    scored pairs' Hamming words)."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import _build
+    from pgvectorscale_tpu_torch.ops import beam_search as bs
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    timed, max_err = {}, 0.0
+    for name, inputs, search in BEAM_CASES:
+        inputs = dict(dict(cap=cap_main, invalid_share=INVALID_EDGE_SHARE), **inputs)
+        arrays, qc, starts, ql = bs.check_inputs(**inputs, device="cuda", generator=g)
+        plain = bs.beam_search_codes_plain(arrays, qc, starts, ql,
+                                           **dict(dict(window_n=0, track_hist=True), **search))
+        limits = [_build.MAX_SHARED_BYTES] + ([0] if name == "beam L=2010" else [])
+        state = bs.state_bytes(search["search_list_size"], search.get("window_n", 0),
+                               search["expand_factor"], inputs["r"])
+        for limit in limits:
+            got = bs.beam_search_codes(arrays, qc, starts, ql, shared_limit=limit, **search)
+            torch.cuda.synchronize()
+            bad = bs.results_equal(got, plain)
+            err = max(max_abs_diff(getattr(got, f), getattr(plain, f))
+                      for f in bs.RESULT_FIELDS)
+            max_err = max(max_err, err)
+            where = "shared memory" if state <= limit else "scratch"
+            say(f"  beam_search {name} Q={inputs['q']} W={inputs['w']} "
+                f"L={search['search_list_size']} E={search['expand_factor']}: state {state} B "
+                f"in {where}, {got.iters} iterations: "
+                f"{'equal' if not bad else 'DIFFERENT in ' + ', '.join(bad)} "
+                f"(max abs err {err})")
+            if bad:
+                fail(f"beam_search differs from beam_search_plain at {name}: {bad}")
+        if name in ("search", "build wave"):
+            timed[name] = time_beam_search(arrays, qc, starts, ql, search, card)
+        del arrays, qc, starts, ql, plain, got
+    say(f"phase 2 kernel vs plain: beam_search equal at all {len(BEAM_CASES)} shapes")
+    check_deadline("kernel vs plain")
+    timing = dict(timed["search"])
+    timing["max_abs_err"] = max_err
+    timing["build_wave"] = {k: v for k, v in timed["build wave"].items() if k != "bound_how"}
+    return timing
+
+
+def time_beam_search(arrays, qc, starts, ql, search: dict, card: dict) -> dict:
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import beam_search as bs
+
+    kw = dict(dict(window_n=0, track_hist=True), **search)
+    ms = cuda_time_ms(lambda i: bs.launch(arrays, qc, starts, ql, **kw), 10)
+    one = [t[:1] for t in (qc, starts, ql)]
+    chain_ms = cuda_time_ms(lambda i: bs.launch(arrays, *one, **kw), 10)
+    plain_ms = event_ms(lambda: bs.beam_search_codes_plain(arrays, qc, starts, ql, **kw))
+    # The visits, for the bound: the same search with its history kept.
+    res = bs.beam_search_codes(arrays, qc, starts, ql, **dict(kw, track_hist=True))
+    visited = torch.unique(res.hist_ids[res.hist_ids >= 0])
+    nbrs = arrays.adjacency[visited.long()]
+    nbr_rows = int(torch.unique(nbrs[nbrs >= 0]).numel())
+    out, _ = bs.launch(arrays, qc, starts, ql, **kw)
+    out_bytes = sum(t.numel() * t.element_size() for t in out.values()) + qc.shape[0] * 4
+    (q, w), (s, lq) = qc.shape, (starts.shape[1], ql.shape[1])
+    r, lm = arrays.adjacency.shape[1], arrays.node_labels.shape[1]
+    nbytes = bs.bound_bytes(q, w, r, s, lq, lm, out_bytes, int(visited.numel()), nbr_rows)
+    pairs = int(res.n_dist_comps.sum())
+    bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, pairs, w))
+    say(f"  beam_search timing at Q={q} W={w} L={kw['search_list_size']} "
+        f"E={kw['expand_factor']}: kernel {ms:.4f} ms ({res.iters} iterations), one query "
+        f"alone {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {how}; {int(visited.numel())} distinct frontier rows, {nbr_rows} "
+        f"distinct neighbour rows, {pairs} scored pairs; the 100k code table and "
+        f"adjacency fit in the 50 MB L2)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bound_how=how, chain_ms=chain_ms, iters=res.iters,
+                shape=dict(q=q, w=w, r=r, cap=arrays.adjacency.shape[0],
+                           l=kw["search_list_size"], h=kw["max_iters"], e=kw["expand_factor"],
+                           visited_rows=int(visited.numel()), nbr_rows=nbr_rows,
+                           scored_pairs=pairs))
+
+
+def check_prune_scan(card: dict) -> dict:
+    """The prune kernel against its plain version on the card at every
+    PRUNE_CASES shape (``ops.prune_scan.check_inputs``: ties, zero
+    distances, the node among its candidates, padding, sentinel-padded
+    labels): ``sel`` bit-equal.  The first shape is timed: the kernel
+    (CUDA events behind the device sleep), the plain version (events
+    around one call), one row alone (B=1: the chain of dependent steps)
+    and the bound from its picks (``ops.prune_scan.bound_bytes``)."""
+    import torch
+
+    from pgvectorscale_tpu_torch.graph.prune import alpha_schedule, sort_candidates
+    from pgvectorscale_tpu_torch.ops import prune_scan as ps
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    kw = dict(num_neighbors=PRUNE_R, alphas=alpha_schedule(PRUNE_MAX_ALPHA))
+    timing = None
+    for b, c, lm in PRUNE_CASES:
+        node, cand, cd, pair, cl, nl = ps.check_inputs(b, c, lm, "cuda", g)
+        args = (*sort_candidates(node, cand, cd), cl, nl)
+        order, ids, d, valid, tq = args[:5]
+        got = ps.prune_scan(order, pair, d, ids, valid, tq, cl, nl, **kw)
+        want = ps.prune_scan_plain(order, pair, d, ids, valid, tq, cl, nl, **kw)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        err = max_abs_diff(got, want)
+        picks = int((got != ps.UNSELECTED).sum())
+        say(f"  prune_scan B={b} C={c} Lm={lm} R={PRUNE_R}: {picks} picks, "
+            f"{'equal' if ok else 'DIFFERENT'} (max abs err {err})")
+        if not ok:
+            fail(f"prune_scan differs from its plain version at {(b, c, lm)}")
+        if timing is None:
+            ms = cuda_time_ms(lambda i: ps.prune_scan(order, pair, d, ids, valid, tq, cl, nl,
+                                                      **kw), 20)
+            one = [None if t is None else t[:1] for t in (order, pair, d, ids, valid, tq, cl, nl)]
+            chain_ms = cuda_time_ms(lambda i: ps.prune_scan(*one, **kw), 20)
+            plain_ms = event_ms(lambda: ps.prune_scan_plain(order, pair, d, ids, valid, tq, cl,
+                                                            nl, **kw))
+            per_s = card["sms"] * card["sm_hz"] * F32_OPS_PER_CLK_SM
+            ops_ms = picks * c * 6 / per_s * 1e3  # compare, divide, max: about 6 a pair
+            nbytes = ps.bound_bytes(b, c, picks, lm)
+            bound_ms, bound_by, how = bound(nbytes, dict(ms=ops_ms, way="f32 on the CUDA cores"))
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None, bound_how=how, chain_ms=chain_ms, max_abs_err=err,
+                          shape=dict(b=b, c=c, lm=lm, r=PRUNE_R, picks=picks,
+                                     n_alphas=len(kw["alphas"])))
+            say(f"  prune_scan timing at B={b} C={c}: kernel {ms:.4f} ms, one row alone "
+                f"{chain_ms:.4f} ms ({len(kw['alphas'])} x {c} dependent steps), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how})")
+        timing["max_abs_err"] = max(timing["max_abs_err"], err)
+        del node, cand, cd, pair, cl, nl, args, got, want
+    say(f"phase 2 kernel vs plain: prune_scan equal at all {len(PRUNE_CASES)} shapes")
+    check_deadline("kernel vs plain")
+    return timing
 
 
 def check_edge_gather(cap_main: int, card: dict) -> dict:
@@ -905,22 +1150,22 @@ def phase_search(index, vectors, queries, phase: str, rescores=(50, 300)):
 
 def search_point(index, qdev, params, gt, name: str, phase: str) -> dict:
     """One search point: ``timed_search`` (best of 3) with the peak device
-    memory and edge_gather launches of its runs; fails on invalid results
+    memory and beam_search launches of its runs; fails on invalid results
     (shape, finite distances, ids in range, no id twice in a row) or no
     launch; returns recall@10 against ``gt``, QPS and the rest."""
     import torch
 
-    from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.ops import beam_search
 
     nq = qdev.shape[0]
-    before = edge_gather.launches
+    before = beam_search.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ids, dists, secs = timed_search(index, qdev, params)
     peak = torch.cuda.max_memory_allocated()
-    launches = edge_gather.launches - before
+    launches = beam_search.launches - before
     if launches == 0:
-        fail(f"{phase}: {name} did not launch edge_gather")
+        fail(f"{phase}: {name} did not launch beam_search")
     s_ids = torch.sort(ids, dim=1).values
     if (ids.shape != (nq, 10) or not bool(torch.isfinite(dists).all())
             or bool(((ids < 0) | (ids >= index.count)).any())
@@ -928,10 +1173,10 @@ def search_point(index, qdev, params, gt, name: str, phase: str) -> dict:
         fail(f"{phase}: {name} returned invalid results")
     recall = recall_at_10(ids, gt)
     out = dict(recall=recall, qps=nq / min(secs), seconds=secs, peak_bytes=peak,
-               edge_gather_launches=launches, iters=index.last_search.iters)
+               beam_search_launches=launches, iters=index.last_search.iters)
     say(f"  {name}: recall@10 {recall:.4f}, QPS {nq / min(secs):.1f} (best of "
         f"{[round(t, 4) for t in secs]} s), {index.last_search.iters} beam "
-        f"iterations, edge_gather launches {launches}, peak device memory {peak} B")
+        f"iterations, beam_search launches {launches}, peak device memory {peak} B")
     check_deadline(phase)
     return out
 
@@ -940,7 +1185,7 @@ def phase_windows(index, vectors, queries) -> dict:
     """Every window strategy at each WINDOW_POINTS (L, rescore, E) on the
     exact-prune index: valid results (ids in range, no id twice in a row,
     finite distances), recall (floor at rescore 300), QPS best of 3, the
-    peak device memory of each search, and edge_gather launched in each."""
+    peak device memory of each search, and beam_search launched in each."""
     import torch
 
     from pgvectorscale_tpu_torch import QueryParams
@@ -992,8 +1237,9 @@ def time_gather_dot(index) -> dict:
 
 def phase_exact(vectors, queries, counts) -> dict:
     """An SBQ build with build_distance "exact" of all but the last
-    EXACT_ADD rows, its search, then one add of those rows; no kernel
-    launches in the build or the add, edge_gather in the search."""
+    EXACT_ADD rows, its search, then one add of those rows; the build and
+    the add traverse in full precision (no Hamming or beam-search kernel)
+    and prune through prune_scan, the search launches beam_search."""
     import numpy as np
     import torch
 
@@ -1024,10 +1270,13 @@ def phase_exact(vectors, queries, counts) -> dict:
     say(f"  exact add: {EXACT_ADD} rows in {out['add_s']:.2f}s, peak device memory "
         f"{out['add_peak_bytes']} B; {check_graph(index, 'exact add')}; "
         f"launches {out['launches']}")
-    if any(out["launches"]["build"].values()) or any(out["launches"]["add"].values()):
-        fail("the exact build or add launched a kernel: traversal must be full precision")
-    if out["launches"]["search"]["edge_gather"] == 0:
-        fail("the exact index's search did not launch edge_gather")
+    for step in ("build", "add"):
+        if any(out["launches"][step][k] for k in ("edge_gather", "hamming_matrix",
+                                                   "beam_search")):
+            fail(f"the exact {step} launched a Hamming kernel: traversal must be full "
+                 f"precision")
+        require(out["launches"][step], ("prune_scan",), f"the exact {step}")
+    require(out["launches"]["search"], ("beam_search",), "the exact index's search")
     check_deadline("exact add")
     return out
 
@@ -1223,6 +1472,77 @@ def phase_agreement(index, queries, query_labels=None, phase: str = "agreement")
     check_deadline(phase)
 
 
+@contextlib.contextmanager
+def plain_loops():
+    """Within: every beam search and prune of the package runs its plain
+    version (the beam loop and the prune scan as Python loops), on the
+    card as anywhere."""
+    from pgvectorscale_tpu_torch.graph import prune, search
+    from pgvectorscale_tpu_torch.ops import beam_search as bs
+    from pgvectorscale_tpu_torch.ops import prune_scan as ps
+
+    saved = search.beam_search_codes, prune.prune_scan
+    search.beam_search_codes, prune.prune_scan = bs.beam_search_codes_plain, ps.prune_scan_plain
+    try:
+        yield
+    finally:
+        search.beam_search_codes, prune.prune_scan = saved
+
+
+def phase_loops_agreement(index, queries) -> dict:
+    """On phase 3's index, on the card: ``DiskannIndex.search`` of the
+    queries at L=100, rescore 300 and one searched wave of 4,096 rows
+    (``graph.build.insert_wave`` re-inserting the 4,096 rows from the
+    middle of the index over the whole graph, which writes new arrays and
+    leaves the index as it is),
+    once through the two loop kernels and once through their plain
+    versions: the ids, distances and every SearchResult field of the
+    search, and the wave's adjacency (neighbour lists, backlinks and
+    overflow prunes), bit-equal.  Seconds of each, host clock."""
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch.graph import build
+    from pgvectorscale_tpu_torch.ops import beam_search as bs
+
+    phase = "loops agreement"
+    qdev = torch.as_tensor(queries).cuda()
+    ctx = build.BuildContext(index.config)
+    nodes = torch.arange(index.count // 2, index.count // 2 + 4096, dtype=torch.int32,
+                         device="cuda")
+    runs, out = [], {}
+    for way in ("kernels", "plain"):
+        with plain_loops() if way == "plain" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids, dists = index.search(qdev, 10, QueryParams(search_list_size=100, rescore=300))
+            torch.cuda.synchronize()
+            t_search = time.perf_counter() - t
+            res = index.last_search
+            t = time.perf_counter()
+            adj = build.insert_wave(index.arrays, ctx, nodes, prefix_rows=index.count,
+                                    snap_adjacency=index.arrays.adjacency).adjacency
+            torch.cuda.synchronize()
+            t_wave = time.perf_counter() - t
+        runs.append((ids, dists, res, adj))
+        out[way] = dict(search_s=t_search, wave_s=t_wave, iters=res.iters)
+    (ids, dists, res, adj), (p_ids, p_dists, p_res, p_adj) = runs
+    bad = bs.results_equal(res, p_res)
+    out["search_equal"] = torch.equal(ids, p_ids) and torch.equal(dists, p_dists) and not bad
+    out["wave_equal"] = torch.equal(adj, p_adj)
+    out["wave_rows_changed"] = int((adj != index.arrays.adjacency).any(dim=1).sum())
+    say(f"phase 5 {phase}: search through the kernels {out['kernels']['search_s']:.4f}s, the "
+        f"plain loops {out['plain']['search_s']:.4f}s ({res.iters} iterations): "
+        f"{'equal' if out['search_equal'] else 'DIFFERENT ' + str(bad)}; wave of "
+        f"{nodes.numel()} rows through the kernels {out['kernels']['wave_s']:.4f}s, the plain "
+        f"loops {out['plain']['wave_s']:.4f}s ({out['wave_rows_changed']} rows written): "
+        f"{'equal' if out['wave_equal'] else 'DIFFERENT'}")
+    if not (out["search_equal"] and out["wave_equal"]):
+        fail(f"{phase}: the kernels and the plain loops disagree")
+    check_deadline(phase)
+    return out
+
+
 def suite_labels(n: int, rng):
     """benchmarks/suite.py ``run_filtered``'s label draw: two labels a row
     with popularity 1/rank, kept as 1 or 2 distinct labels.  Returns the
@@ -1340,7 +1660,7 @@ def phase_filtered(vectors, queries, counts) -> dict:
     import torch
 
     from pgvectorscale_tpu_torch import QueryParams
-    from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.ops import beam_search
 
     rng = np.random.default_rng(FILTER_SEED)
     labels, row_labels, pop = suite_labels(N, rng)
@@ -1355,8 +1675,7 @@ def phase_filtered(vectors, queries, counts) -> dict:
     out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
     after = counts()
     out["build_launches"] = {k: after[k] - start[k] for k in start}
-    if out["build_launches"]["edge_gather"] == 0:
-        fail("the filtered build did not launch edge_gather")
+    require(out["build_launches"], BUILD_KERNELS, "the filtered build")
     n_starts = check_label_starts(index, "filtered build")
     if n_starts != len(np.unique(row_labels[row_labels >= 0])):
         fail(f"filtered build: {n_starts} label start entries for "
@@ -1373,24 +1692,24 @@ def phase_filtered(vectors, queries, counts) -> dict:
     for l, rescore, e in FILTER_POINTS:
         for m, ql in qsets.items():
             params = QueryParams(search_list_size=l, rescore=rescore, expand=e)
-            before = edge_gather.launches
+            before = beam_search.launches
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ids, dists, secs = timed_search(index, qdev, params, query_labels=ql)
             peak = torch.cuda.max_memory_allocated()
-            launches = edge_gather.launches - before
+            launches = beam_search.launches - before
             name = f"{m}-label L={l} rescore={rescore} E={e}"
             if launches == 0:
-                fail(f"filtered search {name} did not launch edge_gather")
+                fail(f"filtered search {name} did not launch beam_search")
             check_filtered(ids, dists, label_rows(ql), rows_t, name)
             recall = recall_at_10(ids, gts[m])
             out["search"][name] = dict(
                 recall=recall, qps=NQ / min(secs), seconds=secs, peak_bytes=peak,
-                edge_gather_launches_3_runs=launches, iters=index.last_search.iters,
+                beam_search_launches_3_runs=launches, iters=index.last_search.iters,
                 missing=int((ids < 0).sum()))
             say(f"  filtered {name}: recall@10 {recall:.4f}, QPS {NQ / min(secs):.1f} "
                 f"(best of {[round(t, 4) for t in secs]} s), {index.last_search.iters} beam "
-                f"iterations, edge_gather launches {launches} in 3 runs, peak device "
+                f"iterations, beam_search launches {launches} in 3 runs, peak device "
                 f"memory {peak} B, {int((ids < 0).sum())} missing results")
             if (l, rescore, e) == FILTER_POINTS[-1] and recall < MIN_FILTERED_RECALL:
                 fail(f"filtered search {name}: recall@10 {recall:.4f} is below "
@@ -1641,8 +1960,9 @@ def phase_scale(counts):
     if ingests["one-shot"] or ingests["chunks"] != -(-SCALE_N // index_mod._ingest_chunk_rows(
             SCALE_N, DIM)):
         fail("int8 build: the build did not take the chunked ingest")
-    if a.vectors.dtype != torch.int8 or out["build_launches"]["edge_gather"] == 0:
-        fail("int8 build: int8 rows and edge_gather launches expected")
+    if a.vectors.dtype != torch.int8:
+        fail("int8 build: int8 rows expected")
+    require(out["build_launches"], BUILD_KERNELS, "the int8 build")
 
     flag = np.random.default_rng(FLAG_SEED).random(SCALE_N) < FLAG_SHARE
     oracles = scale_oracles(vectors, queries, flag, index)
@@ -1874,31 +2194,31 @@ def check_build_stats(index, phase: str) -> dict:
 
 def check_trace(index, queries) -> dict:
     """One search at L=100, rescore 50 inside ``stats.profiler_trace``: the
-    trace written into a temporary directory must hold the edge_gather
+    trace written into a temporary directory must hold the beam_search
     kernel, once for each launch the wrapper counted in that search."""
     import torch
 
     from pgvectorscale_tpu_torch import QueryParams
-    from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.ops import beam_search
     from pgvectorscale_tpu_torch.stats import profiler_trace
 
     qdev = torch.as_tensor(queries).cuda()
     with tempfile.TemporaryDirectory() as td:
-        before = edge_gather.launches
+        before = beam_search.launches
         with profiler_trace(td):
             index.search(qdev, 10, QueryParams(search_list_size=100, rescore=50))
-        launches = edge_gather.launches - before
+        launches = beam_search.launches - before
         files = list(Path(td).iterdir())
         events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    ours = [e for e in kernels if "edge_gather" in e.get("name", "")]
-    out = dict(files=len(files), kernel_events=len(kernels), edge_gather_events=len(ours),
-               edge_gather_launches=launches,
-               edge_gather_device_us=sum(float(e.get("dur", 0)) for e in ours),
+    ours = [e for e in kernels if "beam_search" in e.get("name", "")]
+    out = dict(files=len(files), kernel_events=len(kernels), beam_search_events=len(ours),
+               beam_search_launches=launches,
+               beam_search_device_us=sum(float(e.get("dur", 0)) for e in ours),
                name=ours[0]["name"] if ours else None)
     say(f"  search trace (stats.profiler_trace): {out}")
     if not ours or len(ours) != launches:
-        fail(f"the profiler trace holds {len(ours)} edge_gather kernels for {launches} launches")
+        fail(f"the profiler trace holds {len(ours)} beam_search kernels for {launches} launches")
     return out
 
 
@@ -1969,8 +2289,8 @@ import json, os, signal, sys, time
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
-from pgvectorscale_tpu_torch.ops import _build, edge_gather, hamming_matrix
-for name in ("edge_gather", "hamming_matrix"):
+from pgvectorscale_tpu_torch.ops import _build, beam_search, edge_gather, hamming_matrix, prune_scan
+for name in ("edge_gather", "hamming_matrix", "beam_search", "prune_scan"):
     _build.load(name, build_dir=sys.argv[2])
 from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, durability
 
@@ -2000,8 +2320,8 @@ index.delete(rng.choice(index.count, int(sizes["delete"] * index.count), replace
 index.add(vectors[pos : pos + sizes["reuse"]])
 torch.cuda.synchronize()
 print(json.dumps({"base_checkpoint_s": base_s, "appends": appends,
-                  "launches": {"edge_gather": edge_gather.launches,
-                               "hamming_matrix": hamming_matrix.launches},
+                  "launches": {m.__name__.rsplit(".", 1)[1]: m.launches
+                               for m in (edge_gather, hamming_matrix, beam_search, prune_scan)},
                   "count": index.count, "num_live": index.num_live}), flush=True)
 os.kill(os.getpid(), signal.SIGKILL)
 """
@@ -2078,8 +2398,7 @@ def phase_durable(vectors, queries, build_dir: Path, snap: dict, counts) -> dict
             f"after its reuse add: {same}")
         if not all(same.values()):
             fail(f"{phase}: the replayed index differs from phase 7's: {same}")
-        if min(out["replay_launches"].values()) == 0:
-            fail(f"{phase}: the replay did not launch both kernels")
+        require(out["replay_launches"], LIFE_KERNELS, f"{phase}: the replay")
 
         path2 = Path(td) / "auto.npz"
         out["checkpoint_rows"] = index.count
@@ -2357,8 +2676,8 @@ def phase_high_dim(counts) -> dict:
         say(f"  {phase}: search of {HD_QUERIES} queries at L={l}, rescore {rescore}: "
             f"{res['seconds']:.3f}s, recall@10 {res['recall']:.4f}, launches "
             f"{res['launches']}, peak {res['peak_bytes']} B")
-        if index.arrays.codes.shape[1] != 500 or res["launches"]["edge_gather"] == 0:
-            fail(f"{phase}: edge_gather did not launch on 500-word codes")
+        if index.arrays.codes.shape[1] != 500 or res["launches"]["beam_search"] == 0:
+            fail(f"{phase}: beam_search did not launch on 500-word codes")
         if not bool(torch.isfinite(dists).all()):
             fail(f"{phase}: a search returned a distance that is not finite")
     if res["recall"] < HD_MIN_RECALL:
@@ -2426,11 +2745,12 @@ def phase_sift(counts):
     out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
     out["build_launches"] = {k: v - start[k] for k, v in counts().items()}
     w = index.config.num_code_words
-    refine_eg = out["build_s"]["launches_after_waves"]["edge_gather"]
-    say(f"  sift build: W={w}, launches {out['build_launches']} ({refine_eg} edge_gather in "
+    refine_eg = out["build_s"]["launches_after_waves"]["beam_search"]
+    say(f"  sift build: W={w}, launches {out['build_launches']} ({refine_eg} beam_search in "
         f"finalize+refine); peak device memory {out['build_peak_bytes']} B")
-    if w != 16 or out["build_launches"]["edge_gather"] == 0 or refine_eg == 0:
-        fail("sift build: W=16 and edge_gather launches in the waves and the refinement expected")
+    if w != 16 or refine_eg == 0:
+        fail("sift build: W=16 and beam_search launches in the refinement expected")
+    require(out["build_launches"], BUILD_KERNELS, "the sift build")
 
     phase = "sift search"
     t = elapsed()
@@ -2501,7 +2821,7 @@ def phase_ceiling(index, vectors, qdev, gt) -> dict:
 
 def phase_wide(vectors, queries, counts) -> dict:
     """Phase 21: phase 6's storage build of the 100k corpus at WIDE_BITS
-    bits a dimension (W = 192): build seconds, launches (both kernels in
+    bits a dimension (W = 192): build seconds, launches (LIFE_KERNELS in
     the build), peak device memory, graph checks; phase 4's searches
     (recall floor MIN_RECALL at rescore 300)."""
     import torch
@@ -2516,8 +2836,9 @@ def phase_wide(vectors, queries, counts) -> dict:
     w = index.config.num_code_words
     say(f"  8-bit build: W={w}, launches {out['build_launches']}; peak device memory "
         f"{out['build_peak_bytes']} B")
-    if w != DIM * WIDE_BITS // 32 or min(out["build_launches"].values()) == 0:
-        fail("8-bit build: W=192 and launches of both kernels expected")
+    if w != DIM * WIDE_BITS // 32:
+        fail("8-bit build: W=192 expected")
+    require(out["build_launches"], LIFE_KERNELS, "the 8-bit build")
     out["search"], out["search_peak_bytes"] = phase_search(index, vectors, queries,
                                                            "8-bit search")
     return out
@@ -2570,11 +2891,11 @@ def phase_sharded_scale(vectors, queries, single: dict, counts) -> dict:
     of the external ids against the exact top-10 over these rows
     (``ExactIndex``), held at phase 13's single-device recall over 1M rows
     at the same point minus SHARD_RECALL_MARGIN; QPS best of 3;
-    edge_gather launched."""
+    beam_search launched."""
     import torch
 
     from pgvectorscale_tpu_torch import ExactIndex, IndexConfig, QueryParams, ShardedDiskannIndex
-    from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.ops import beam_search
     from pgvectorscale_tpu_torch.parallel.mesh import make_mesh
 
     phase = "sharded build"
@@ -2604,8 +2925,7 @@ def phase_sharded_scale(vectors, queries, single: dict, counts) -> dict:
         f"train + ingest {out['build_s']['ingest_s']:.2f}s, {bs.num_waves} waves a shard "
         f"{bs.insert_s:.2f}s, finalize {bs.finalize_s:.2f}s; peak device memory "
         f"{out['build_peak_bytes']}; launches {out['build_launches']}; {out['graph']}")
-    if out["build_launches"]["edge_gather"] == 0:
-        fail("sharded build: edge_gather did not launch")
+    require(out["build_launches"], BUILD_KERNELS, "the sharded build")
     check_deadline(phase)
 
     phase = "sharded search"
@@ -2617,7 +2937,7 @@ def phase_sharded_scale(vectors, queries, single: dict, counts) -> dict:
         params = QueryParams(search_list_size=l, rescore=rescore, expand=e,
                              window_strategy=strategy, visit_factor=vf)
         name = f"{strategy} L={l} rescore={rescore} E={e} visit_factor={vf}"
-        before = edge_gather.launches
+        before = beam_search.launches
         for c in cards:
             torch.cuda.reset_peak_memory_stats(c)
         secs = []
@@ -2638,17 +2958,17 @@ def phase_sharded_scale(vectors, queries, single: dict, counts) -> dict:
         res = dict(recall=recall, floor=floor, single_recall=single[name]["recall"],
                    qps=NQ / min(secs), seconds=secs,
                    peak_bytes={c: torch.cuda.max_memory_allocated(c) for c in cards},
-                   edge_gather_launches=edge_gather.launches - before,
+                   beam_search_launches=beam_search.launches - before,
                    iters=stats.iterations, visits_per_query=stats.total_visits / NQ)
         out["search"][name] = res
         say(f"  sharded {name}: recall@10 {recall:.4f} (phase 13, one device: "
             f"{res['single_recall']:.4f}; floor {floor:.4f}), QPS {res['qps']:.1f} (best of "
             f"{[round(s, 4) for s in secs]} s; phase 13: {single[name]['qps']:.1f}), "
             f"{res['visits_per_query']:.1f} visits a query over the shards, "
-            f"{res['iters']} iterations at most, edge_gather launches "
-            f"{res['edge_gather_launches']}, peak {res['peak_bytes']}")
-        if res["edge_gather_launches"] == 0:
-            fail(f"{phase}: {name} did not launch edge_gather")
+            f"{res['iters']} iterations at most, beam_search launches "
+            f"{res['beam_search_launches']}, peak {res['peak_bytes']}")
+        if res["beam_search_launches"] == 0:
+            fail(f"{phase}: {name} did not launch beam_search")
         if recall < floor:
             fail(f"{phase}: recall@10 {recall:.4f} at {name} is below phase 13's "
                  f"{res['single_recall']:.4f} - {SHARD_RECALL_MARGIN}")
@@ -2820,7 +3140,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
 from pgvectorscale_tpu_torch.ops import _build
-for name in ("edge_gather", "hamming_matrix"):
+for name in ("edge_gather", "hamming_matrix", "beam_search", "prune_scan"):
     _build.load(name, build_dir=sys.argv[2])
 from pgvectorscale_tpu_torch import IndexConfig, QueryParams, ShardedDiskannIndex
 from pgvectorscale_tpu_torch.parallel import multihost
@@ -2933,9 +3253,11 @@ def main(argv=None) -> int:
 
     from pgvectorscale_tpu_torch.config import StorageLayout
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
-    from pgvectorscale_tpu_torch.ops import _build, edge_gather, hamming_matrix
+    from pgvectorscale_tpu_torch.ops import (_build, beam_search, edge_gather, hamming_matrix,
+                                             prune_scan)
 
-    modules = {"edge_gather": edge_gather, "hamming_matrix": hamming_matrix}
+    modules = {"edge_gather": edge_gather, "hamming_matrix": hamming_matrix,
+               "beam_search": beam_search, "prune_scan": prune_scan}
 
     def reset_counts() -> None:
         for m in modules.values():
@@ -3015,13 +3337,13 @@ def main(argv=None) -> int:
             search, peaks["exact-prune search"] = phase_search(index, vectors, queries, "search")
             trace = check_trace(index, queries)
             paths["exact-prune"] = read_counts()  # the exact-prune path ends here
-            eg_build = in_build["edge_gather"]
-            eg_all = paths["exact-prune"]["edge_gather"]
+            in_search = {k: paths["exact-prune"][k] - in_build[k] for k in in_build}
             say(f"phase 4 search: recall@10 {search[50]['recall']:.4f} (rescore 50), "
-                f"{search[300]['recall']:.4f} (rescore 300); edge_gather launches "
-                f"{eg_all} ({eg_build} in build, {eg_all - eg_build} in search)")
-            if eg_build == 0 or eg_all == eg_build:
-                fail("the exact-prune path did not launch the edge_gather kernel")
+                f"{search[300]['recall']:.4f} (rescore 300); launches {in_build} in the "
+                f"build, {in_search} in the searches")
+            require(in_build, BUILD_KERNELS, "the exact-prune build")
+            require(in_search, ("beam_search",), "the exact-prune searches")
+            loops = phase_loops_agreement(index, queries)
             phase_agreement(index, queries)
             search_stats = phase_search_stats(index, queries)
 
@@ -3048,8 +3370,7 @@ def main(argv=None) -> int:
             say(f"phase 6 storage search: recall@10 {s_search[50]['recall']:.4f} "
                 f"(rescore 50), {s_search[300]['recall']:.4f} (rescore 300); "
                 f"launches {paths['storage']}")
-            if s_in_build["hamming_matrix"] < 1 or s_in_build["edge_gather"] == 0:
-                fail("the storage build did not launch both kernels")
+            require(s_in_build, LIFE_KERNELS, "the storage build")
             del s_index
             torch.cuda.empty_cache()
 
@@ -3060,8 +3381,7 @@ def main(argv=None) -> int:
             peaks["life cycle"] = torch.cuda.max_memory_allocated()
             say(f"phase 7 life cycle: launches {paths['life cycle']}; peak device memory "
                 f"{peaks['life cycle']} B")
-            if min(paths["life cycle"].values()) == 0:
-                fail("the life cycle did not launch both kernels")
+            require(paths["life cycle"], LIFE_KERNELS, "the life cycle")
             torch.cuda.empty_cache()
 
             reset_counts()  # the refine path starts here
@@ -3072,14 +3392,14 @@ def main(argv=None) -> int:
             r_search, peaks["refine search"] = phase_search(r_index, vectors, queries,
                                                             "refine search")
             paths["refine"] = read_counts()  # the refine path ends here
-            in_refine = r_build_times["launches_after_waves"]["edge_gather"]
+            in_refine = r_build_times["launches_after_waves"]["beam_search"]
             say(f"phase 8 refine: recall@10 {r_search[300]['recall']:.4f} at rescore 300 "
                 f"(unrefined build {search[300]['recall']:.4f}), {r_search[50]['recall']:.4f} at "
                 f"rescore 50 (unrefined {search[50]['recall']:.4f}); launches {paths['refine']}, "
-                f"edge_gather {in_refine} in finalize+refine; peak device memory "
+                f"beam_search {in_refine} in finalize+refine; peak device memory "
                 f"{peaks['refine build']} B")
             if in_refine == 0:
-                fail("the refinement pass did not launch edge_gather")
+                fail("the refinement pass did not launch beam_search")
             del r_index
             torch.cuda.empty_cache()
 
@@ -3103,8 +3423,9 @@ def main(argv=None) -> int:
             paths["plain"] = read_counts()  # the plain path ends here
             say(f"phase 10 plain: recall@10 {p_search[50]['recall']:.4f} at L=100; launches "
                 f"{paths['plain']}; peak device memory of the build {peaks['plain build']} B")
-            if any(paths["plain"].values()):
-                fail("the plain path launched a kernel")
+            if any(paths["plain"][k] for k in ("edge_gather", "hamming_matrix", "beam_search")):
+                fail("the plain path launched a Hamming kernel")
+            require(paths["plain"], ("prune_scan",), "the plain path")
             gather_dot = time_gather_dot(p_index)
             del p_index
             torch.cuda.empty_cache()
@@ -3128,8 +3449,7 @@ def main(argv=None) -> int:
             peaks["filtered life cycle"] = torch.cuda.max_memory_allocated()
             say(f"phase 12 filtered life cycle: launches {paths['filtered life cycle']}; peak "
                 f"device memory {peaks['filtered life cycle']} B")
-            if min(paths["filtered life cycle"].values()) == 0:
-                fail("the filtered life cycle did not launch both kernels")
+            require(paths["filtered life cycle"], LIFE_KERNELS, "the filtered life cycle")
             torch.cuda.empty_cache()
 
             reset_counts()  # the int8 scale path starts here
@@ -3162,8 +3482,7 @@ def main(argv=None) -> int:
             peaks["int8 life cycle"] = torch.cuda.max_memory_allocated()
             say(f"phase 15 int8 life cycle: launches {paths['int8 life cycle']}; peak device "
                 f"memory {peaks['int8 life cycle']} B")
-            if min(paths["int8 life cycle"].values()) == 0:
-                fail("the int8 life cycle did not launch both kernels")
+            require(paths["int8 life cycle"], LIFE_KERNELS, "the int8 life cycle")
             torch.cuda.empty_cache()
 
             reset_counts()  # the durable life-cycle path starts here
@@ -3184,8 +3503,7 @@ def main(argv=None) -> int:
             say(f"phase 17 host graph and tools: launches {paths['host graph and tools']} (the "
                 f"CLI's commands in this process and the library's search of its checkpoint; the "
                 f"search subprocess counts its own)")
-            if paths["host graph and tools"]["edge_gather"] == 0:
-                fail("phase 17 did not launch edge_gather")
+            require(paths["host graph and tools"], ("beam_search",), "phase 17")
             torch.cuda.empty_cache()
 
             reset_counts()  # the high-dim path starts here
@@ -3199,6 +3517,9 @@ def main(argv=None) -> int:
                 "kernel_timing_shapes": {k: timing[k]["shape"] for k in KERNELS},
                 "kernel_bounds": {k: timing[k]["bound_how"] for k in KERNELS},
                 "edge_gather_by_q": timing["edge_gather"]["by_q"],
+                "beam_search_build_wave": timing["beam_search"]["build_wave"],
+                "chain_ms": {k: timing[k]["chain_ms"] for k in BUILD_KERNELS},
+                "loops_agreement": loops,
                 "hamming_matrix_yardsticks_ms": timing["hamming_matrix"]["yardsticks_ms"],
                 "peak_memory_bytes": peaks,
                 "build_s": build_times, "search": {str(k): v for k, v in search.items()},
@@ -3233,8 +3554,7 @@ def main(argv=None) -> int:
             sharded["life_cycle"] = phase_sharded_life_cycle(vectors, queries, read_counts)
             paths["sharded life cycle"] = read_counts()  # the sharded life cycle ends here
             say(f"phase 19 sharded life cycle: launches {paths['sharded life cycle']}")
-            if min(paths["sharded life cycle"].values()) == 0:
-                fail("the sharded life cycle did not launch both kernels")
+            require(paths["sharded life cycle"], LIFE_KERNELS, "the sharded life cycle")
             torch.cuda.empty_cache()
             sharded["processes"] = phase_sharded_processes(vectors, queries, build_dir)
             summary.update(sharded=sharded, elapsed_s=elapsed())
@@ -3242,7 +3562,9 @@ def main(argv=None) -> int:
         shutil.rmtree(build_dir, ignore_errors=True)
 
     replaces = {"edge_gather": "pgvectorscale_tpu/ops/pallas_hamming.py:183",
-                "hamming_matrix": "pgvectorscale_tpu/ops/pallas_hamming.py:52"}
+                "hamming_matrix": "pgvectorscale_tpu/ops/pallas_hamming.py:52",
+                "beam_search": "pgvectorscale_tpu/graph/search.py:580",
+                "prune_scan": "pgvectorscale_tpu/graph/prune.py:157"}
     kernels = {"kernels": [{
         "name": k,
         "route": "cuda",

@@ -29,7 +29,9 @@
 //   adds no step to the chain sel -> adjacency -> codes;
 // - consecutive groups take consecutive slots, so the adjacency reads and
 //   the float writes of a warp are contiguous.
-// Integer sums are the same in any order, so the result is bit-exact.
+// The lanes' loads and the group sum are hamming.cuh's, shared with
+// beam_search.cu.  Integer sums are the same in any order, so the result
+// is bit-exact.
 //
 // Plain C interface for ctypes: raw pointers, sizes and the caller's
 // stream.  The function launches, allocates nothing, does not synchronise,
@@ -38,30 +40,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hamming.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxChunksPerLane = 4;
-
-template <int V>
-struct Chunk;
-
-template <>
-struct Chunk<4> {
-  using T = int4;
-  __device__ static T zero() { return make_int4(0, 0, 0, 0); }
-  __device__ static unsigned pop_xor(T a, T b) {
-    return __popc(static_cast<unsigned>(a.x ^ b.x)) + __popc(static_cast<unsigned>(a.y ^ b.y)) +
-           __popc(static_cast<unsigned>(a.z ^ b.z)) + __popc(static_cast<unsigned>(a.w ^ b.w));
-  }
-};
-
-template <>
-struct Chunk<1> {
-  using T = int;
-  __device__ static T zero() { return 0; }
-  __device__ static unsigned pop_xor(T a, T b) { return __popc(static_cast<unsigned>(a ^ b)); }
-};
 
 // V: ints per load (4 or 1).  CPL: chunks a lane loads per round (1-4).
 template <int V, int CPL>
@@ -72,13 +55,10 @@ edge_gather_hamming_kernel(const int* __restrict__ codes,      // [cap, W]
                            const int* __restrict__ qcodes,     // [Q, W]
                            float* __restrict__ out,            // [Q*E*R]
                            int slots, int e, int r, int w, int log2g, int cap) {
-  using C = Chunk<V>;
-  using T = typename C::T;
   const int g = 1 << log2g;
   const int t = blockIdx.x * kThreads + threadIdx.x;
   const int s = t >> log2g;  // the neighbour slot, q*E*R + e*R + r
   const int lane_in_group = t & (g - 1);
-  const int chunks = w / V;
   unsigned pop = 0;
   if (s < slots) {
     const int row = s / r;  // q*E + e
@@ -86,22 +66,12 @@ edge_gather_hamming_kernel(const int* __restrict__ codes,      // [cap, W]
     const int node = min(max(__ldg(sel + row), 0), cap - 1);
     const int nb = min(max(__ldg(adjacency + static_cast<long long>(node) * r + (s - row * r)), 0),
                        cap - 1);
-    const T* crow = reinterpret_cast<const T*>(codes + static_cast<long long>(nb) * w);
-    const T* qrow = reinterpret_cast<const T*>(qcodes + static_cast<long long>(q) * w);
-    for (int c0 = lane_in_group; c0 < chunks; c0 += CPL * g) {
-      T a[CPL], b[CPL];
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        const int c = c0 + i * g;
-        a[i] = c < chunks ? __ldg(crow + c) : C::zero();
-        b[i] = c < chunks ? __ldg(qrow + c) : C::zero();
-      }
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) pop += C::pop_xor(a[i], b[i]);
-    }
+    pop = pgvs::lane_pop_xor<V, CPL>(codes + static_cast<long long>(nb) * w,
+                                     qcodes + static_cast<long long>(q) * w, w / V,
+                                     lane_in_group, g);
   }
   // Every lane of the warp takes part; lanes past the last slot add 0.
-  for (int off = g >> 1; off > 0; off >>= 1) pop += __shfl_xor_sync(0xffffffffu, pop, off);
+  pop = pgvs::group_sum(pop, g);
   if (s < slots && lane_in_group == 0) out[s] = static_cast<float>(pop);
 }
 
@@ -129,14 +99,8 @@ extern "C" int pgvs_edge_gather_hamming(const void* codes, const void* adjacency
   // separate from the caller's: point it at the device of the tensors.
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(query_codes)) & 15) == 0;
-  const int v = (w % 4 == 0 && aligned) ? 4 : 1;
-  const int chunks = w / v;
-  int log2g = 0;  // the least G (up to 32) that leaves a lane <= 4 chunks
-  while (log2g < 5 && ((chunks + (1 << log2g) - 1) >> log2g) > kMaxChunksPerLane) ++log2g;
-  const int per_lane = (chunks + (1 << log2g) - 1) >> log2g;
-  const int cpl = per_lane < kMaxChunksPerLane ? per_lane : kMaxChunksPerLane;
+  const pgvs::GroupShape shape = pgvs::group_shape(w, codes, query_codes);
+  const int v = shape.v, log2g = shape.log2g, cpl = shape.cpl;
   const int slots = q * e * r;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PGVS_LAUNCH(V, CPL) \

@@ -161,7 +161,7 @@ def prune_candidate_sets(
     """Batched add_neighbors-style prune: candidates -> neighbour lists;
     on a labeled index the nodes' and the candidates' labels go to the
     label-aware prune.  The pair matrix is handed over without a reference
-    kept here, so the prune can free it once it has reordered it."""
+    kept here; the prune kernel reads it in place, unsorted."""
     cand_labels = node_labels = None
     if arrays.node_labels.shape[1] > 0:
         cand_labels = arrays.node_labels[cand_ids.clamp_min(0).long()]

@@ -13,26 +13,24 @@ batched over B nodes, with the JAX package's semantics:
 - Label-aware (labeled indexes): picked i raises j's factor only if
   labels_i contains labels_j ∩ node_labels (graph/mod.rs:452-462).
 
-The dependent scan is a Python loop of n_alphas * C steps, each a few
-in-place ops on [B, C] tensors; the [B, C, C] factor matrix (and the
-[B, C, C] label gate) is computed once up front.
+The candidates' sort stays here, in torch; the dependent scan of
+n_alphas * C steps is ``ops.prune_scan``: one kernel launch per prune on
+the card, which reads the pair distances and labels through the sort's
+order, and on the CPU its plain version, a Python loop over [B, C]
+tensors after the [B, C, C] factor matrix (and label gate) up front.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from typing import Optional
 
 from ..config import DistanceType
-from ..labels import pairwise_contains_intersection
 from ..ops.hamming import code_bits
+from ..ops.prune_scan import F32_EPS as _F32_EPS
+from ..ops.prune_scan import UNSELECTED, prune_scan
 from ..store import INVALID_ID
-
-_F32_EPS = float(np.finfo(np.float32).eps)
-_BIG = 3.0e38
-_UNSELECTED = 2**31 - 1
 
 
 def alpha_schedule(max_alpha: float) -> tuple[float, ...]:
@@ -43,6 +41,29 @@ def alpha_schedule(max_alpha: float) -> tuple[float, ...]:
         alphas.append(a)
         a *= 1.2
     return tuple(alphas)
+
+
+def sort_candidates(
+    node_ids: torch.Tensor,  # i32[B]
+    cand_ids: torch.Tensor,  # i32[B, C]
+    cand_dists: torch.Tensor,  # f32[B, C]
+) -> tuple[torch.Tensor, ...]:
+    """The candidates in prune order: (order i32[B, C], and sorted by it
+    cand_ids, dists (+inf where invalid), valid (neither padding nor the
+    node) and tie_q = |cand - node| as f32).  Two-key stable sort: by the
+    minor key (id distance, for zero distances only) first, then stably
+    by distance."""
+    valid = (cand_ids != INVALID_ID) & (cand_ids != node_ids[:, None])
+    dists = torch.where(valid, cand_dists, torch.inf)
+    tie_q = (cand_ids - node_ids[:, None]).abs().to(torch.float32)
+    tie_key = torch.where(dists <= _F32_EPS, tie_q, 0.0)
+    order = torch.sort(tie_key, dim=1, stable=True).indices
+    order = torch.gather(
+        order, 1,
+        torch.sort(torch.gather(dists, 1, order), dim=1, stable=True).indices,
+    )
+    return (order.to(torch.int32), *(torch.gather(t, 1, order)
+                                      for t in (cand_ids, dists, valid, tie_q)))
 
 
 def robust_prune(
@@ -59,70 +80,14 @@ def robust_prune(
     """(neighbor_ids i32[B, R], neighbor_dists f32[B, R]) in selection
     order, INVALID_ID / +inf padded.  With ``cand_labels`` of width > 0
     the prune is label-aware."""
-    b, c = cand_ids.shape
     r = num_neighbors
-    dev = cand_ids.device
+    order, cand_ids, dists, valid, tie_q = sort_candidates(node_ids, cand_ids, cand_dists)
+    # The scan reads the pair distances and the labels through ``order``.
+    sel = prune_scan(order, pair_dists, dists, cand_ids, valid, tie_q, cand_labels,
+                     node_labels, num_neighbors=r, alphas=alphas)
 
-    valid = (cand_ids != INVALID_ID) & (cand_ids != node_ids[:, None])
-    dists = torch.where(valid, cand_dists, torch.inf)
-    tie_q = (cand_ids - node_ids[:, None]).abs().to(torch.float32)
-
-    # Two-key stable sort (distance, then id distance for zero distances):
-    # sort by the minor key first, then stably by the major key.
-    tie_key = torch.where(dists <= _F32_EPS, tie_q, 0.0)
-    order = torch.sort(tie_key, dim=1, stable=True).indices
-    order = torch.gather(
-        order, 1,
-        torch.sort(torch.gather(dists, 1, order), dim=1, stable=True).indices,
-    )
-    cand_ids = torch.gather(cand_ids, 1, order)
-    dists = torch.gather(dists, 1, order)
-    valid = torch.gather(valid, 1, order)
-    tie_q = torch.gather(tie_q, 1, order)
-    pair_dists = torch.gather(pair_dists, 1, order[:, :, None].expand(b, c, c))
-    pair_dists = torch.gather(pair_dists, 2, order[:, None, :].expand(b, c, c))
-    labeled = cand_labels is not None and cand_labels.shape[-1] > 0
-    if labeled:
-        cand_labels = torch.gather(
-            cand_labels, 1, order[:, :, None].expand(-1, -1, cand_labels.shape[-1])
-        )
-
-    # factor[b, i, j] = get_factor(num=d(j, node), div=d(j, i))
-    tie_pair = (cand_ids[:, :, None] - cand_ids[:, None, :]).abs().to(torch.float32)
-    num = dists[:, None, :]
-    tie_ratio = tie_q[:, None, :] / torch.clamp_min(tie_pair, 1.0)
-    factor = torch.where(
-        pair_dists < _F32_EPS,
-        torch.where(num < _F32_EPS, tie_ratio, _BIG),
-        num / torch.clamp_min(pair_dists, _F32_EPS),
-    )
-    del tie_pair, tie_ratio, pair_dists
-    if labeled:
-        # label_ok[b, i, j]: picked i may occlude j.
-        label_ok = pairwise_contains_intersection(cand_labels, node_labels)
-
-    alphas_t = torch.tensor(alphas, dtype=torch.float32, device=dev)
-    col = torch.arange(c, device=dev)
-    f = torch.where(valid, 0.0, _BIG).to(torch.float32)
-    sel = torch.full((b, c), _UNSELECTED, dtype=torch.int32, device=dev)
-    count = torch.zeros((b,), dtype=torch.int32, device=dev)
-    for a in range(len(alphas)):
-        alpha = alphas_t[a]
-        for i in range(c):
-            can_pick = (
-                (count < r) & (sel[:, i] == _UNSELECTED)
-                & (f[:, i] <= alpha) & valid[:, i]
-            )
-            sel[:, i] = torch.where(can_pick, count, sel[:, i])
-            count += can_pick
-            upd = can_pick[:, None] & (col > i)[None, :]
-            if labeled:
-                upd &= label_ok[:, i, :]
-            torch.where(upd, torch.maximum(f, factor[:, i, :]), f, out=f)
-            f[:, i] = torch.where(can_pick, _BIG, f[:, i])
-
-    out_ids = torch.where(sel != _UNSELECTED, cand_ids, INVALID_ID)
-    out_d = torch.where(sel != _UNSELECTED, dists, torch.inf)
+    out_ids = torch.where(sel != UNSELECTED, cand_ids, INVALID_ID)
+    out_d = torch.where(sel != UNSELECTED, dists, torch.inf)
     order = torch.sort(sel, dim=1, stable=True).indices
     return (
         torch.gather(out_ids, 1, order)[:, :r],

@@ -9,26 +9,31 @@ in the JAX package:
 - Each step visits the E best unvisited entries, gathers their adjacency
   rows, scores the neighbours, drops duplicates and merges the candidates
   into the beam with one bitonic merge.  SBQ traversal scores Hamming
-  distances on the codes through the edge-gather kernel, which reads the
-  codes through the adjacency; full-precision traversal (plain storage,
-  and builds with ``build_distance="exact"``) gathers the rows' indexed
-  prefix and takes L2, inner-product or cosine distances.
+  distances on the codes, read through the adjacency; full-precision
+  traversal (plain storage, and builds with ``build_distance="exact"``)
+  gathers the rows' indexed prefix and takes L2, inner-product or cosine
+  distances.
 - The visit history doubles as the build-time candidate set.
 - ``window_n`` > 0 keeps a side buffer of the best ``window_n`` scored
   candidates seen anywhere in the search (the "scored" rescore window),
   merged by the beam's network without visited flags.
 
-The loop is a Python loop over iterations with one host read per
-iteration (the termination test); everything inside an iteration is
-batched tensor work.  Ties follow the JAX package: ``lax.top_k`` and
-``lax.sort`` become stable ``torch.sort``, and the bitonic network is the
-same network, so equal inputs give equal beams.
+On the card, SBQ traversal runs the whole loop in one kernel launch
+(``ops.beam_search``, one block a query: every piece of the loop's state
+is a query's own).  ``beam_search_plain`` is the loop as a Python loop
+over iterations with one host read per iteration (the termination test),
+everything inside an iteration batched tensor work: the CPU's path, the
+kernel's reference, and full-precision traversal's path on the card.
+Ties follow the JAX package: ``lax.top_k`` and ``lax.sort`` become stable
+``torch.sort``, and the bitonic network is the same network, so equal
+inputs give equal beams.
 
 A filtered search (label sets, the ``&&`` predicate) starts from the
 default start and one start node per query label, and a neighbour stays
 a candidate only if its labels overlap the query's (sbq/storage.rs:
-165-172); the edge-gather kernel still scores every neighbour and the
-label mask is applied beside it, as in the JAX package.
+165-172).  The plain loop scores every neighbour (the edge-gather
+kernel) and applies the label mask beside it, as the JAX package does;
+the beam-search kernel masks before it scores.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 from ..config import DistanceType
 from ..distance import row_distances
 from ..labels import overlaps
+from ..ops.beam_search import beam_search_codes
 from ..ops.edge_gather import hamming_edge_gather
 from ..ops.hamming import hamming_gather
 from ..store import INVALID_ID, GraphArrays, lookup_label_starts
@@ -197,8 +203,43 @@ def beam_search(
     window_n: int = 0,
     query_labels: Optional[torch.Tensor] = None,  # i32[Q, Lq]
 ) -> SearchResult:
-    """Batched greedy beam search; ``expand_factor`` (E) frontier nodes are
-    visited per iteration, ``max_iters`` is the visit budget.
+    """Batched greedy beam search (arguments and result as
+    ``beam_search_plain``).  SBQ traversal (``use_codes``) goes to
+    ``ops.beam_search.beam_search_codes``: on the card one kernel launch
+    runs the whole loop, on the CPU it is ``beam_search_plain``.
+    Full-precision traversal runs ``beam_search_plain`` on either device."""
+    if use_codes:
+        return beam_search_codes(
+            arrays, query_codes, start_ids, query_labels,
+            search_list_size=search_list_size, max_iters=max_iters,
+            expand_factor=expand_factor, track_hist=track_hist, window_n=window_n,
+        )
+    return beam_search_plain(
+        arrays, query_codes, start_ids, search_list_size=search_list_size,
+        max_iters=max_iters, expand_factor=expand_factor, track_hist=track_hist,
+        query_vecs=query_vecs, use_codes=False, distance_type=distance_type,
+        window_n=window_n, query_labels=query_labels,
+    )
+
+
+def beam_search_plain(
+    arrays: GraphArrays,
+    query_codes: torch.Tensor,  # i32[Q, W] (W == 0 for plain storage)
+    start_ids: torch.Tensor,  # i32[Q, S]
+    *,
+    search_list_size: int,
+    max_iters: int,
+    expand_factor: int = 1,
+    track_hist: bool = True,
+    query_vecs: Optional[torch.Tensor] = None,  # f32[Q, Dt]
+    use_codes: bool = True,
+    distance_type: DistanceType = DistanceType.COSINE,
+    window_n: int = 0,
+    query_labels: Optional[torch.Tensor] = None,  # i32[Q, Lq]
+) -> SearchResult:
+    """Batched greedy beam search as a Python loop over iterations;
+    ``expand_factor`` (E) frontier nodes are visited per iteration,
+    ``max_iters`` is the visit budget.
 
     ``use_codes``: the neighbours are scored by the edge-gather kernel,
     which reads ``arrays.codes`` through ``arrays.adjacency``.  Otherwise

@@ -4,8 +4,9 @@ Each kernel is one ``.cu`` file under ``csrc/`` with a plain ``extern "C"``
 interface.  At first use it is compiled by ``nvcc`` into a shared library
 and loaded with ``ctypes``; nothing includes PyTorch's headers, so a build
 takes seconds.  Libraries land in ``csrc/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source or flag is rebuilt and an unchanged one is reused.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source, header or flag is
+rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_TIMEOUT_S = 300
+# The shared memory one block may use on the build's target, sm_90a
+# (232,448 bytes of the H100 SM's 256 KB).
+MAX_SHARED_BYTES = 232_448
 
 # name -> ctypes library, for this process; threads load under the lock.
 _LOADED: dict = {}
@@ -49,6 +53,13 @@ def find_nvcc() -> str:
     )
 
 
+def _headers_bytes() -> bytes:
+    """The names and contents of every ``csrc/*.cuh``, which a source may
+    include: an edited header gives every library a new hash."""
+    return b"".join(h.name.encode() + b"\0" + h.read_bytes()
+                    for h in sorted(CSRC.glob("*.cuh")))
+
+
 def build(names, build_dir: Path | None = None) -> list[dict]:
     """Compile ``csrc/<name>.cu`` for each name unless a library for the
     same source and flags exists: one nvcc process per missing source, all
@@ -60,7 +71,7 @@ def build(names, build_dir: Path | None = None) -> list[dict]:
     for name in names:
         src = CSRC / f"{name}.cu"
         digest = hashlib.sha256(
-            src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+            src.read_bytes() + _headers_bytes() + "\0".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         lib = build_dir / f"lib{name}_{digest}.so"
         record = {"name": name, "library": str(lib), "compiled": False,

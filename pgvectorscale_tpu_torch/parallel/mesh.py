@@ -15,12 +15,12 @@ XLA place the work.  The port's ``Mesh`` is a list of positions, each a
   the wave produces one adjacency.
 
 Positions run one after another in the calling thread, each under its
-device (``run_on_positions``).  The work a position gives its card is
-host-bound (about 150 small launches a beam iteration), and PyTorch
-releases and retakes the interpreter lock around every launch: four
-host threads, one a card, built a 1M-row index 3.2x slower than one
-thread did on one card (``PERF.md`` §6).  Cards work at once in a
-world of processes, one a card (``multihost``).
+device (``run_on_positions``).  When the beam loop was a Python loop
+(about 150 small launches a beam iteration), four host threads, one a
+card, built a 1M-row index 3.2x slower than one thread did on one card:
+PyTorch releases and retakes the interpreter lock around every launch
+(``PERF.md`` §6).  Cards work at once in a world of processes, one a
+card (``multihost``).
 
 ``make_mesh`` places position p on ``cuda:{p % device_count}``: four
 positions on a one-card machine are four shards on that card.  On the CPU

@@ -16,7 +16,7 @@ import stat
 import pytest
 import torch
 
-from pgvectorscale_tpu_torch.ops import _build, edge_gather, hamming_matrix
+from pgvectorscale_tpu_torch.ops import _build, beam_search, edge_gather, hamming_matrix, prune_scan
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -177,12 +177,13 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
     """A small index built on the card passes the invariants, and the
     card's beam search over it (kernel), with a "scored" window of 200,
     equals the CPU's (plain version) exactly: Hamming distances are
-    integers.  A "scored" search on the card returns no id twice."""
+    integers.  A "scored" search on the card launches the beam-search
+    kernel and returns no id twice."""
     import numpy as np
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
     from pgvectorscale_tpu_torch.graph.build import reachable_on_device
-    from pgvectorscale_tpu_torch.graph.search import beam_search, get_start_ids
+    from pgvectorscale_tpu_torch.graph import search
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
 
     base, queries = synthetic_corpus("glove", 6000, 64, seed=2)
@@ -192,10 +193,10 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
     assert int((index.arrays.adjacency != -1).sum(1).max()) <= index.arrays.max_degree
     ids, dists = index.search(queries, 10)
     assert ids.shape == (64, 10) and bool(torch.isfinite(dists).all())
-    before = edge_gather.launches
+    before = beam_search.launches
     ids, dists = index.search(queries, 40, QueryParams(search_list_size=32, rescore=200,
                                                        window_strategy="scored"))
-    assert edge_gather.launches > before
+    assert beam_search.launches > before
     assert ids.shape == (64, 40) and bool(torch.isfinite(dists).all())
     assert all(len(set(row.tolist())) == 40 for row in ids.cpu())
     codes = index.arrays.codes[torch.arange(64, device=cuda_device) * 7]
@@ -205,9 +206,9 @@ def test_build_and_beam_search_on_card_match_cpu(cuda_device):
             codes=index.arrays.codes.to(dev), adjacency=index.arrays.adjacency.to(dev),
             vectors=index.arrays.vectors.to(dev), deleted=index.arrays.deleted.to(dev),
         )
-        res = beam_search(arrays, codes.to(dev), get_start_ids(arrays, 64),
-                          search_list_size=64, max_iters=112, expand_factor=4,
-                          window_n=200)
+        res = search.beam_search(arrays, codes.to(dev), search.get_start_ids(arrays, 64),
+                                 search_list_size=64, max_iters=112, expand_factor=4,
+                                 window_n=200)
         results.append([t.cpu() for t in (res.beam_ids, res.beam_dists, res.hist_ids,
                                           res.window_ids, res.window_dists)])
     for a, b in zip(*results):
@@ -257,10 +258,11 @@ def test_full_precision_build_and_add_on_card_match_cpu(cuda_device, mode, monke
     3,000 x 32 vectors of integers in -3..3, so every distance is an
     integer in any summation order) with ``refine_passes=1``, then an add
     of 1,000 rows: the card
-    gives the CPU's graph exactly, launches no kernel in the build or the
-    add (full-precision traversal), and the "exact" index's search
-    launches edge_gather.  The brute-force threshold is lowered to 256 rows
-    so the build and the add reach full-precision beam waves."""
+    gives the CPU's graph exactly, launches no Hamming kernel in the build
+    or the add (full-precision traversal) but the prune kernel, and the
+    "exact" index's search launches the beam-search kernel.  The
+    brute-force threshold is lowered to 256 rows so the build and the add
+    reach full-precision beam waves."""
     import numpy as np
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
@@ -278,18 +280,21 @@ def test_full_precision_build_and_add_on_card_match_cpu(cuda_device, mode, monke
                          num_neighbors=16, search_list_size=32, **kw)
     graphs = []
     for dev in (cuda_device, torch.device("cpu")):
-        before = (edge_gather.launches, hamming_matrix.launches)
+        before = (edge_gather.launches, hamming_matrix.launches, beam_search.launches)
+        pruned = prune_scan.launches
         index = DiskannIndex.build(base[:3000], config, device=dev, refine_passes=1)
         index.add(base[3000:])
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert (edge_gather.launches, hamming_matrix.launches) == before
+            assert (edge_gather.launches, hamming_matrix.launches,
+                    beam_search.launches) == before
+            assert prune_scan.launches > pruned
             n = index.count
             assert bool(reachable_on_device(index.arrays)[:n].all())
             ids, dists = index.search(base[:64], 10, QueryParams(search_list_size=32,
                                                                  rescore=50))
             assert ids[:, 0].tolist() == list(range(64))
-            assert (edge_gather.launches > before[0]) == (mode == "exact")
+            assert (beam_search.launches > before[2]) == (mode == "exact")
         graphs.append(index.arrays.adjacency.cpu())
     assert torch.equal(graphs[0], graphs[1])
 
@@ -301,8 +306,8 @@ def test_labeled_bf16_build_and_filtered_search_on_card_match_cpu(cuda_device, m
     brute-force threshold lowered to 256 rows, so searched waves run
     their filtered pass, then a filtered search with 1- and 2-label
     queries: the card gives the CPU's graph, label table, ids and
-    distances exactly, and edge_gather launches in the build and in the
-    search."""
+    distances exactly, and the beam-search kernel launches in the build
+    and in the search."""
     import numpy as np
 
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
@@ -325,14 +330,14 @@ def test_labeled_bf16_build_and_filtered_search_on_card_match_cpu(cuda_device, m
                          search_list_size=32, max_labels_per_vector=2, vector_dtype="bf16")
     results = []
     for dev in (cuda_device, torch.device("cpu")):
-        before = edge_gather.launches
+        before = beam_search.launches
         index = DiskannIndex.build(base, config, labels=labels, device=dev)
-        mid = edge_gather.launches
+        mid = beam_search.launches
         ids, dists = index.search(queries, 10, QueryParams(search_list_size=32, rescore=50),
                                   query_labels=qlabels, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert mid > before and edge_gather.launches > mid
+            assert mid > before and beam_search.launches > mid
             assert index.arrays.vectors.dtype == torch.bfloat16
             assert bool(reachable_on_device(index.arrays)[:3000].all())
         results.append([t.cpu() for t in (index.arrays.adjacency, index.arrays.node_labels,
@@ -454,3 +459,97 @@ def test_block_masked_iter_step_equals_one_step_at_a_time(cuda_device):
         outs.append(emitted + list(state))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+def test_beam_search_wrapper_rejects_bad_inputs():
+    arrays, qc, starts, ql = beam_search.check_inputs(4, 64, 3, 5, s=2, lm=1, lq=1)
+    kw = dict(search_list_size=8, max_iters=8, expand_factor=2)
+    before = beam_search.launches
+    res = beam_search.beam_search_codes(arrays, qc, starts, ql, **kw)  # accepted
+    assert res.beam_ids.shape == (4, 8) and beam_search.launches == before  # plain on the CPU
+    with pytest.raises(TypeError):
+        beam_search.beam_search_codes(arrays, qc.long(), starts, ql, **kw)
+    with pytest.raises(TypeError):
+        beam_search.beam_search_codes(arrays._replace(adjacency=arrays.adjacency.long()),
+                                      qc, starts, ql, **kw)
+    with pytest.raises(ValueError):  # words differ
+        beam_search.beam_search_codes(arrays, qc[:, :2].contiguous(), starts, ql, **kw)
+    with pytest.raises(ValueError):  # query counts differ
+        beam_search.beam_search_codes(arrays, qc, starts[:3], ql, **kw)
+    with pytest.raises(ValueError):
+        beam_search.beam_search_codes(arrays, qc, starts.t(), ql, **kw)
+    with pytest.raises(ValueError):  # E > L
+        beam_search.beam_search_codes(arrays, qc, starts, ql, search_list_size=2,
+                                      max_iters=8, expand_factor=3)
+    with pytest.raises(ValueError):
+        meta = arrays._replace(codes=arrays.codes.to("meta"),
+                               adjacency=arrays.adjacency.to("meta"),
+                               node_labels=arrays.node_labels.to("meta"))
+        beam_search.beam_search_codes(meta, qc.to("meta"), starts.to("meta"),
+                                      ql.to("meta"), **kw)
+
+
+def test_prune_scan_wrapper_rejects_bad_inputs():
+    from pgvectorscale_tpu_torch.graph.prune import sort_candidates
+
+    node, cand, cd, pair, cl, nl = prune_scan.check_inputs(3, 12, 2, "cpu")
+    order, ids, d, valid, tq = sort_candidates(node, cand, cd)
+    kw = dict(num_neighbors=4, alphas=(1.0, 1.2))
+    before = prune_scan.launches
+    sel = prune_scan.prune_scan(order, pair, d, ids, valid, tq, cl, nl, **kw)  # accepted
+    assert sel.shape == (3, 12) and prune_scan.launches == before  # plain on the CPU
+    assert int((sel != prune_scan.UNSELECTED).sum(1).max()) <= 4
+    with pytest.raises(TypeError):
+        prune_scan.prune_scan(order.long(), pair, d, ids, valid, tq, cl, nl, **kw)
+    with pytest.raises(TypeError):
+        prune_scan.prune_scan(order, pair.double(), d, ids, valid, tq, cl, nl, **kw)
+    with pytest.raises(ValueError):  # pair matrix too narrow
+        prune_scan.prune_scan(order, pair[:, :, :11].contiguous(), d, ids, valid, tq, cl, nl,
+                              **kw)
+    with pytest.raises(ValueError):  # labels without the node's
+        prune_scan.prune_scan(order, pair, d, ids, valid, tq, cl, None, **kw)
+    with pytest.raises(ValueError):
+        prune_scan.prune_scan(order, pair.transpose(1, 2), d, ids, valid, tq, cl, nl, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs,search", beam_search.CHECK_CASES)
+def test_beam_search_kernel_matches_plain_on_card(cuda_device, inputs, search):
+    """On the card the kernel launches once and every output (beam, visit
+    history, counters, window, iterations) equals the plain loop's on the
+    same inputs (tolerance: none)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    arrays, qc, starts, ql = beam_search.check_inputs(**inputs, device=cuda_device,
+                                                      generator=g)
+    plain_kw = {k: v for k, v in search.items() if k != "shared_limit"}
+    plain_kw.setdefault("track_hist", True)
+    plain_kw.setdefault("window_n", 0)
+    before = beam_search.launches
+    got = beam_search.beam_search_codes(arrays, qc, starts, ql, **search)
+    assert beam_search.launches == before + 1
+    want = beam_search.beam_search_codes_plain(arrays, qc, starts, ql, **plain_kw)
+    torch.cuda.synchronize()
+    assert beam_search.results_equal(got, want) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,lm,r,max_alpha", prune_scan.CHECK_CASES)
+def test_prune_scan_kernel_matches_plain_on_card(cuda_device, b, c, lm, r, max_alpha):
+    """On the card the kernel launches once and its picks equal the plain
+    scan's exactly, and robust_prune on the card equals it on the CPU."""
+    from pgvectorscale_tpu_torch.graph.prune import alpha_schedule, robust_prune, sort_candidates
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    inputs = prune_scan.check_inputs(b, c, lm, cuda_device, g)
+    node, cand, cd, pair, cl, nl = inputs
+    order, ids, d, valid, tq = sort_candidates(node, cand, cd)
+    kw = dict(num_neighbors=r, alphas=alpha_schedule(max_alpha))
+    before = prune_scan.launches
+    got = prune_scan.prune_scan(order, pair, d, ids, valid, tq, cl, nl, **kw)
+    assert prune_scan.launches == before + 1
+    want = prune_scan.prune_scan_plain(order, pair, d, ids, valid, tq, cl, nl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    card = robust_prune(*inputs, **kw)
+    cpu = robust_prune(*[None if t is None else t.cpu() for t in inputs], **kw)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))

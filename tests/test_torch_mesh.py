@@ -312,12 +312,12 @@ def test_launch_counts_survive_threads():
     """The kernels' launch counters take one increment a launch from any
     number of host threads (readers may search at once): 16 threads x
     2,000 increments each, with a short switch interval, lose none."""
-    from pgvectorscale_tpu_torch.ops import edge_gather, hamming_matrix
+    from pgvectorscale_tpu_torch.ops import beam_search, edge_gather, hamming_matrix, prune_scan
 
     prev = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        for mod in (edge_gather, hamming_matrix):
+        for mod in (edge_gather, hamming_matrix, beam_search, prune_scan):
             start = mod.launches
 
             def work():
