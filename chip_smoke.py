@@ -11,7 +11,8 @@ Phases, each reported on a timestamped, flushed line:
    maximum SM clock (the operations bounds use it).
 1. kernel build: compiles every CUDA kernel from its source into a fresh
    directory (nvcc, plain C interface, ctypes), one nvcc per source, all
-   started together.
+   started together, and prints each kernel's ``-Xptxas -v`` lines
+   (registers, shared memory, stack and spill bytes).
 2. kernel vs plain: each kernel equals its plain PyTorch version exactly
    at the main paths' shapes and the TPU kernel tests' shapes (the edge
    gather also at odd W and W % 4 != 0, over random graphs with 23% of
@@ -33,10 +34,11 @@ Phases, each reported on a timestamped, flushed line:
    at BEAM_CASES (the search shapes at E = 4 and 2, the "scored" window
    of 1,510, the "beam" strategy's L = 2,010 in shared memory and in the
    scratch buffer, 1- and 2-label filtered searches, a build wave with its
-   history, W = 16, 192 and 500, over random graphs), prune_scan bit-equal
-   to its plain version at PRUNE_CASES (B = 4,096, C = 166 and 332,
-   unlabeled and labeled); each timed (kernel, plain, one query or row
-   alone) beside its bound.
+   history, W = 16, 192 and 500, every code word equal in a narrow and a
+   wide row, 64 and 128 slots, E*R = 520, over random graphs), prune_scan
+   bit-equal to its plain version at PRUNE_CASES (B = 4,096, C = 166 and
+   332, unlabeled and labeled); each timed (kernel, plain, one query or
+   row alone) beside its bound.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -447,7 +449,13 @@ TIER_MATRIX_CASES = [(256, 65536, 16), (4096, 8192, 32), (333, 1000, 25), (4096,
 # point (L=2,010, budget 1,216), in shared memory and in the scratch buffer
 # (the wrapper's shared_limit at 0), 1- and 2-label filtered searches, a
 # build wave (B=4,096, the history kept) and W=16 (over phase 20's 1M
-# slots), 192 and 500.  "search" and "build wave" are timed.
+# slots: a wide row over ids above 2**20, the id tie-break's key width),
+# 192 and 500.  Then the inputs that stress the kernel's hashed dedup and
+# sort: every code word equal (every distance ties, so the tie-break alone
+# orders), in a narrow (E*R = 130) and a wide row (260); 64 and 128 slots
+# (adjacency rows full of repeated ids, colliding hash slots); E*R = 520
+# with no empty slot (two expansion passes, more keys than the register
+# sort holds).  "search" and "build wave" are timed.
 BEAM_CASES = [
     ("search", dict(q=1024, w=48, r=65), dict(search_list_size=100, max_iters=166,
                                                expand_factor=4, track_hist=False)),
@@ -470,6 +478,17 @@ BEAM_CASES = [
                                               expand_factor=4, track_hist=False)),
     ("W=500", dict(q=64, w=500, r=21, cap=4096), dict(search_list_size=50, max_iters=91,
                                                        expand_factor=2, track_hist=True)),
+    ("ties narrow", dict(q=1024, w=48, r=65, word_values=1),
+     dict(search_list_size=100, max_iters=166, expand_factor=2, track_hist=True,
+          window_n=300)),
+    ("ties wide", dict(q=1024, w=48, r=65, word_values=1),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=False)),
+    ("cap 64", dict(q=256, w=48, r=65, cap=64, word_values=4),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=True)),
+    ("cap 128", dict(q=256, w=48, r=65, cap=128, word_values=4),
+     dict(search_list_size=50, max_iters=91, expand_factor=2, track_hist=True, window_n=100)),
+    ("E=8", dict(q=256, w=16, r=65, invalid_share=0.0),
+     dict(search_list_size=64, max_iters=96, expand_factor=8, track_hist=True)),
 ]
 # Phase 2, the prune kernel against its plain version: (B, C, Lm) at a
 # wave's B and R: C=166 (a searched wave's deduped visit history), C=332
@@ -670,7 +689,8 @@ def check_beam_search(cap_main: int, card: dict) -> dict:
             err = max(max_abs_diff(getattr(got, f), getattr(plain, f))
                       for f in bs.RESULT_FIELDS)
             max_err = max(max_err, err)
-            where = "shared memory" if state <= limit else "scratch"
+            where = ("shared memory" if state + bs.query_bytes(inputs["w"], inputs.get("lq", 0))
+                     <= limit else "scratch")
             say(f"  beam_search {name} Q={inputs['q']} W={inputs['w']} "
                 f"L={search['search_list_size']} E={search['expand_factor']}: state {state} B "
                 f"in {where}, {got.iters} iterations: "

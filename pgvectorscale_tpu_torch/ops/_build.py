@@ -99,7 +99,8 @@ def build(names, build_dir: Path | None = None) -> list[dict]:
                 )
             os.replace(tmp, lib)  # atomic: a reader never sees a partial library
             record["compiled"] = True
-            record["ptxas"] = [ln for ln in output.splitlines() if "ptxas" in ln]
+            record["ptxas"] = [ln for ln in output.splitlines()
+                               if "ptxas" in ln or "spill" in ln]
     finally:
         for _, _, tmp, _, proc, _ in running:
             if proc.poll() is None:

@@ -16,12 +16,21 @@ least device-memory traffic is each distinct frontier row's R adjacency
 ids, each distinct neighbour's code row (and label row when filtered),
 the inputs and the outputs once (``bound_bytes``); the rows a search reads
 again come from L2 (the 100k code table, 19.2 MB at W = 48, and the
-adjacency fit in its 50 MB).  The block keeps the beam, the window, the
-candidate rows and the merge buffer in shared memory, or, for a state
-over ``_build.MAX_SHARED_BYTES`` (a wide beam or window), in its slice of a
+adjacency fit in its 50 MB).  Each iteration waits on an adjacency read
+and then on code-row reads, so the iterations of the longest query, two
+L2 reads each, bound it too (``microbench/beam_ab.py`` measures both).
+
+The kernel's design: one block a query, of 128 threads (8 blocks an SM: a
+batch of 1,024 queries in one round) or, when that needs no more rounds
+of blocks, 256; the dedup through hash tables of ids, the survivors
+scored several rows a lane group at once, those that can reach the kept
+entries sorted by (distance, slot or id) on registers and merged through
+the plain version's bitonic network trimmed to the kept entries.  Its
+state lives in shared memory, or, for a state over
+``_build.MAX_SHARED_BYTES`` (a wide beam or window), in its slice of a
 scratch buffer the wrapper allocates, through the same code.  Every step
-is the plain version's, with the same stable orders and the same bitonic
-merge network, so every output is bit-equal to it.
+keeps the plain version's stable orders and merge network, so every
+output is bit-equal to it.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, ``beam_search_plain``.  ``launches`` counts kernel
@@ -93,6 +102,29 @@ def _check(arrays, query_codes, start_ids, query_labels, l: int, h: int, e: int,
     if not 1 <= e <= l or h < 0 or window_n < 0:
         raise ValueError(f"need 1 <= expand_factor ({e}) <= search_list_size ({l}), "
                          f"max_iters ({h}) >= 0 and window_n ({window_n}) >= 0")
+    r = arrays.adjacency.shape[1]
+    if e * r * r >= 2**32:  # the kernel divides slots by R with a high multiply
+        raise ValueError(f"expand_factor * R_max**2 ({e} * {r}**2) must stay below 2**32")
+    check_sort_key(w, e * r, cap)
+
+
+# The kernel sorts a query's candidates by one 64-bit key: the Hamming
+# distance (at most 32 W) in the high SORT_KEY_FIELD_BITS bits, the
+# tie-break (the slot, below E*R, in a narrow row; the id, below cap, in a
+# wide one) in the low SORT_KEY_FIELD_BITS.
+SORT_KEY_FIELD_BITS = 32
+NARROW_ROW = 192  # E*R <= 192: ties by slot, else by id
+
+
+def check_sort_key(w: int, er: int, cap: int) -> None:
+    """Raise unless the distance and the tie-break each fit their field of
+    the kernel's sort key."""
+    top = 1 << SORT_KEY_FIELD_BITS
+    tie_max = er - 1 if er <= NARROW_ROW else cap - 1
+    if 32 * w >= top or tie_max >= top:
+        raise ValueError(
+            f"the sort key's {SORT_KEY_FIELD_BITS}-bit fields cannot hold a distance up to "
+            f"{32 * w} (W={w}) and a tie-break up to {tie_max} (E*R={er}, cap={cap})")
 
 
 def beam_search_codes(
@@ -134,9 +166,11 @@ def beam_search_codes(
 
 def launch(arrays, query_codes, start_ids, query_labels, *, search_list_size: int,
            max_iters: int, expand_factor: int, track_hist: bool, window_n: int,
-           shared_limit: int = _build.MAX_SHARED_BYTES):
+           shared_limit: int = _build.MAX_SHARED_BYTES, lib=None):
     """One launch on checked CUDA inputs: (the SearchResult's tensors by
-    field name, the per-query iteration counts i32[Q]); no host read."""
+    field name, the per-query iteration counts i32[Q]); no host read.
+    ``lib``: a library bound by ``bind`` (another build of the same C
+    interface), else this checkout's."""
     q, s = start_ids.shape
     l, h, e = search_list_size, max_iters, expand_factor
     device = start_ids.device
@@ -158,10 +192,10 @@ def launch(arrays, query_codes, start_ids, query_labels, *, search_list_size: in
     iters = torch.empty((q,), **i32)
     if q == 0:
         return out, iters
-    lib = _kernel()
+    lib = lib or _kernel()
     state = lib.pgvs_beam_search_state_bytes(l, window_n, e, r)
     scratch = (torch.empty((q * state,), dtype=torch.uint8, device=device)
-               if state > shared_limit else None)
+               if state + query_bytes(w, lq) > shared_limit else None)
     o = out
     err = lib.pgvs_beam_search(
         arrays.codes.data_ptr(), arrays.adjacency.data_ptr(),
@@ -187,8 +221,14 @@ def state_bytes(search_list_size: int, window_n: int, expand_factor: int, r_max:
                                                   r_max)
 
 
-def _kernel():
-    lib = _build.load("beam_search")
+def query_bytes(w: int, lq: int) -> int:
+    """Shared memory the kernel takes besides the state: the query's code
+    row and labels, each rounded up to 16 bytes."""
+    return 4 * (-(-w // 4) * 4 + -(-lq // 4) * 4)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface's argument types on a loaded library."""
     fn = lib.pgvs_beam_search
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -196,6 +236,10 @@ def _kernel():
     sb.argtypes = [ctypes.c_int] * 4
     sb.restype = ctypes.c_longlong
     return lib
+
+
+def _kernel():
+    return bind(_build.load("beam_search"))
 
 
 def bound_bytes(q: int, w: int, r_max: int, s: int, lq: int, lm: int, out_bytes: int,
@@ -249,11 +293,20 @@ def check_inputs(q: int, cap: int, w: int, r: int, s: int = 1, lm: int = 0, lq: 
     return arrays, torch.randint(lo, hi, (q, w), **i32), starts, labels((q, lq))
 
 
+# Ids above 2**20, as SIFT-1M's 1,000,448 slots give them.
+WIDE_ID_CAP = 1_000_448
+
 # The cases the kernel is held to on the card (tests/test_torch_kernels.py):
 # check_inputs arguments, then the search's.  Narrow (E*R <= 192) and wide
 # rows, heavy ties (4-valued code words), windows, filtered searches (one
 # and two query labels, sentinel padding), no history, a visit budget that
 # binds, the scratch path (shared_limit 0), and W = 1, 16, 192 and 500.
+# Then the inputs that stress the kernel's hashed dedup and sort: every
+# code word equal (every distance ties, the tie-break alone orders), in a
+# narrow and a wide row; 64 and 128 slots (adjacency rows full of repeated
+# ids, colliding hash slots); a wide row over ids above 2**20 (the id
+# tie-break's key width); E*R = 520 with no empty slot (two passes of the
+# kernel's 512-slot expansion, and more keys than its register sort holds).
 CHECK_CASES = [
     (dict(q=64, cap=4096, w=48, r=65), dict(search_list_size=32, max_iters=64, expand_factor=2)),
     (dict(q=64, cap=4096, w=48, r=65), dict(search_list_size=32, max_iters=64, expand_factor=4)),
@@ -274,6 +327,18 @@ CHECK_CASES = [
     (dict(q=64, cap=4096, w=16, r=65), dict(search_list_size=32, max_iters=64, expand_factor=4)),
     (dict(q=32, cap=4096, w=192, r=65), dict(search_list_size=32, max_iters=64, expand_factor=2)),
     (dict(q=16, cap=1024, w=500, r=21), dict(search_list_size=32, max_iters=64, expand_factor=2)),
+    (dict(q=64, cap=4096, w=48, r=65, word_values=1),
+     dict(search_list_size=32, max_iters=64, expand_factor=2, window_n=100)),
+    (dict(q=64, cap=4096, w=8, r=65, word_values=1),
+     dict(search_list_size=64, max_iters=96, expand_factor=4)),
+    (dict(q=64, cap=64, w=8, r=65, word_values=4),
+     dict(search_list_size=32, max_iters=64, expand_factor=4, window_n=60)),
+    (dict(q=64, cap=128, w=4, r=33, word_values=4),
+     dict(search_list_size=16, max_iters=40, expand_factor=2)),
+    (dict(q=32, cap=WIDE_ID_CAP, w=16, r=65, word_values=4),
+     dict(search_list_size=100, max_iters=166, expand_factor=4)),
+    (dict(q=32, cap=4096, w=16, r=65, invalid_share=0.0),
+     dict(search_list_size=64, max_iters=96, expand_factor=8)),
 ]
 
 RESULT_FIELDS = ("beam_ids", "beam_dists", "beam_visited", "hist_ids", "hist_dists",

@@ -218,3 +218,83 @@ def test_batched_loop_matches_jax(carried, kw, lq):  # noqa: F811
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
                                       err_msg=f)
     assert got.iters == int(want.iters)
+
+
+def _stress_arrays(pidx, jidx, kind):
+    """The carried graph with the inputs the kernel's hashed dedup and sort
+    find hardest, the same on both sides: "ties", every code word 0 (every
+    neighbour of a query at the same distance, so the tie-break alone
+    orders the candidates); "repeats", adjacency rows drawn from 64 ids
+    with ~20% empty slots (each row repeats ids many times)."""
+    if kind == "ties":
+        return (pidx.arrays._replace(codes=torch.zeros_like(pidx.arrays.codes)),
+                jidx.arrays._replace(codes=jnp.zeros_like(jidx.arrays.codes)))
+    rng = np.random.default_rng(17)
+    adj = rng.integers(0, 64, pidx.arrays.adjacency.shape).astype(np.int32)
+    adj[rng.random(adj.shape) < 0.2] = -1
+    return (pidx.arrays._replace(adjacency=torch.from_numpy(adj)),
+            jidx.arrays._replace(adjacency=jnp.asarray(adj)))
+
+
+# (input kind, search arguments): each kind in a narrow row (E*R = 130,
+# ties by slot) with a window and in a wide one (E*R = 260, ties by id).
+STRESS_CASES = [
+    ("ties", dict(search_list_size=24, max_iters=40, expand_factor=2, window_n=60)),
+    ("ties", dict(search_list_size=32, max_iters=64, expand_factor=4, track_hist=False)),
+    ("repeats", dict(search_list_size=24, max_iters=40, expand_factor=2, window_n=60)),
+    ("repeats", dict(search_list_size=32, max_iters=64, expand_factor=4)),
+]
+
+
+@pytest.mark.parametrize("kind,kw", STRESS_CASES)
+def test_batched_loop_matches_jax_on_stress_inputs(carried, kind, kw):  # noqa: F811
+    """The plain loop equals JAX's ``beam_search`` on every field at the
+    inputs the card's kernel is held to the plain loop on (``CHECK_CASES``'
+    equal code words and repeated ids), so JAX = plain = kernel holds
+    there (tolerance: none)."""
+    jidx, pidx, queries = carried
+    q = 16
+    qv = np.asarray(jnp.asarray(queries[:q]) / jnp.linalg.norm(queries[:q], axis=1,
+                                                               keepdims=True))
+    jcodes = jsbq.encode(jnp.asarray(qv), jidx.sbq_stats, 2)
+    starts = np.full((q, 1), int(jidx.arrays.default_start), np.int32)
+    parrays, jarrays = _stress_arrays(pidx, jidx, kind)
+    assert pidx.arrays.max_degree * kw["expand_factor"] == (130 if kw["expand_factor"] == 2
+                                                              else 260)
+    kw = dict(dict(track_hist=True, window_n=0), **kw)
+    want = jsearch.beam_search(
+        jarrays, jnp.asarray(qv), jcodes, jnp.zeros((q, 0), jnp.int32), jnp.asarray(starts),
+        distance_type=JaxDistance.COSINE, use_codes=True, filtered=False, **kw,
+    )
+    got = search.beam_search(
+        parrays, torch.from_numpy(np.asarray(jcodes).view(np.int32)), torch.from_numpy(starts),
+        **kw,
+    )
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert got.iters == int(want.iters)
+    if kind == "ties":  # every entry of a query's beam at one distance
+        d = got.beam_dists
+        assert bool(((d == d[:, :1]) | torch.isinf(d)).all())
+
+
+def test_wrapper_rejects_a_sort_key_that_does_not_fit(monkeypatch):
+    """The kernel's sort key holds the distance (up to 32 W) and the
+    tie-break (the slot in a narrow row, the id in a wide one) in 32-bit
+    fields: the widths the port meets fit, and the wrapper rejects, on the
+    CPU, inputs whose key would not fit its fields."""
+    bs.check_sort_key(48, 130, 2**31 - 1)  # narrow: the slot, whatever the cap
+    bs.check_sort_key(2000, 260, bs.WIDE_ID_CAP)  # wide: ids above 2**20
+    with pytest.raises(ValueError, match="sort key"):
+        bs.check_sort_key(2**27, 130, 64)  # 32 W = 2**32
+    kw = dict(search_list_size=16, max_iters=16)
+    arrays, qc, starts, ql = bs.check_inputs(4, 2048, 16, 65)
+    wide = bs.check_inputs(4, 512, 48, 65)
+    monkeypatch.setattr(bs, "SORT_KEY_FIELD_BITS", 10)  # fields up to 1,023
+    # W = 16 (distances up to 512) in a narrow row (slots below 130): fits.
+    bs.beam_search_codes(arrays, qc, starts, ql, expand_factor=2, **kw)
+    with pytest.raises(ValueError, match="sort key"):  # a wide row's ids up to 2,047
+        bs.beam_search_codes(arrays, qc, starts, ql, expand_factor=4, **kw)
+    with pytest.raises(ValueError, match="sort key"):  # W = 48: distances up to 1,536
+        bs.beam_search_codes(*wide, expand_factor=2, **kw)
