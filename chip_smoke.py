@@ -37,8 +37,9 @@ Phases, each reported on a timestamped, flushed line:
    history, W = 16, 192 and 500, every code word equal in a narrow and a
    wide row, 64 and 128 slots, E*R = 520, over random graphs), prune_scan
    bit-equal to its plain version at PRUNE_CASES (B = 4,096, C = 166 and
-   332, unlabeled and labeled); each timed (kernel, plain, one query or
-   row alone) beside its bound.
+   332, unlabeled and labeled, and the overflow prune's C = 129); each
+   timed (kernel, plain, one query or row alone) beside its bound, every
+   prune shape.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -492,9 +493,10 @@ BEAM_CASES = [
 ]
 # Phase 2, the prune kernel against its plain version: (B, C, Lm) at a
 # wave's B and R: C=166 (a searched wave's deduped visit history), C=332
-# (a labeled wave's two histories), unlabeled and with 2 labels.  The
-# first is timed.
-PRUNE_CASES = [(4096, 166, 0), (4096, 332, 0), (4096, 166, 2), (4096, 332, 2)]
+# (a labeled wave's two histories), unlabeled and with 2 labels, and C=129
+# (the overflow prune: 65 neighbours + INCOMING_CAP 64 backlinks).  Every
+# shape is timed; the first is the kernels line's.
+PRUNE_CASES = [(4096, 166, 0), (4096, 332, 0), (4096, 166, 2), (4096, 332, 2), (4096, 129, 0)]
 PRUNE_R, PRUNE_MAX_ALPHA = 50, 1.2
 # Per-SM f32 operations a clock (CUDA C Programming Guide, compute
 # capability 9.0): the prune's factor arithmetic.
@@ -749,10 +751,11 @@ def check_prune_scan(card: dict) -> dict:
     """The prune kernel against its plain version on the card at every
     PRUNE_CASES shape (``ops.prune_scan.check_inputs``: ties, zero
     distances, the node among its candidates, padding, sentinel-padded
-    labels): ``sel`` bit-equal.  The first shape is timed: the kernel
-    (CUDA events behind the device sleep), the plain version (events
-    around one call), one row alone (B=1: the chain of dependent steps)
-    and the bound from its picks (``ops.prune_scan.bound_bytes``)."""
+    labels): ``sel`` bit-equal.  Every shape is timed: the kernel (CUDA
+    events behind the device sleep), the plain version (events around one
+    call), one row alone (B=1: the chain of dependent picks) and the bound
+    from its picks (``ops.prune_scan.bound_bytes``).  Returns the first
+    shape's timing, the others under ``shapes``."""
     import torch
 
     from pgvectorscale_tpu_torch.graph.prune import alpha_schedule, sort_candidates
@@ -760,7 +763,7 @@ def check_prune_scan(card: dict) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     kw = dict(num_neighbors=PRUNE_R, alphas=alpha_schedule(PRUNE_MAX_ALPHA))
-    timing = None
+    shapes, max_err = [], 0.0
     for b, c, lm in PRUNE_CASES:
         node, cand, cd, pair, cl, nl = ps.check_inputs(b, c, lm, "cuda", g)
         args = (*sort_candidates(node, cand, cd), cl, nl)
@@ -770,34 +773,37 @@ def check_prune_scan(card: dict) -> dict:
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
         err = max_abs_diff(got, want)
-        picks = int((got != ps.UNSELECTED).sum())
-        say(f"  prune_scan B={b} C={c} Lm={lm} R={PRUNE_R}: {picks} picks, "
+        max_err = max(max_err, err)
+        row_picks = (got != ps.UNSELECTED).sum(1)
+        picks = int(row_picks.sum())
+        say(f"  prune_scan B={b} C={c} Lm={lm} R={PRUNE_R}: {picks} picks "
+            f"(at most {int(row_picks.max())} a row), "
             f"{'equal' if ok else 'DIFFERENT'} (max abs err {err})")
         if not ok:
             fail(f"prune_scan differs from its plain version at {(b, c, lm)}")
-        if timing is None:
-            ms = cuda_time_ms(lambda i: ps.prune_scan(order, pair, d, ids, valid, tq, cl, nl,
-                                                      **kw), 20)
-            one = [None if t is None else t[:1] for t in (order, pair, d, ids, valid, tq, cl, nl)]
-            chain_ms = cuda_time_ms(lambda i: ps.prune_scan(*one, **kw), 20)
-            plain_ms = event_ms(lambda: ps.prune_scan_plain(order, pair, d, ids, valid, tq, cl,
-                                                            nl, **kw))
-            per_s = card["sms"] * card["sm_hz"] * F32_OPS_PER_CLK_SM
-            ops_ms = picks * c * 6 / per_s * 1e3  # compare, divide, max: about 6 a pair
-            nbytes = ps.bound_bytes(b, c, picks, lm)
-            bound_ms, bound_by, how = bound(nbytes, dict(ms=ops_ms, way="f32 on the CUDA cores"))
-            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=None, bound_how=how, chain_ms=chain_ms, max_abs_err=err,
-                          shape=dict(b=b, c=c, lm=lm, r=PRUNE_R, picks=picks,
-                                     n_alphas=len(kw["alphas"])))
-            say(f"  prune_scan timing at B={b} C={c}: kernel {ms:.4f} ms, one row alone "
-                f"{chain_ms:.4f} ms ({len(kw['alphas'])} x {c} dependent steps), plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how})")
-        timing["max_abs_err"] = max(timing["max_abs_err"], err)
-        del node, cand, cd, pair, cl, nl, args, got, want
+        ms = cuda_time_ms(lambda i: ps.prune_scan(order, pair, d, ids, valid, tq, cl, nl, **kw),
+                          20)
+        one = [None if t is None else t[:1] for t in (order, pair, d, ids, valid, tq, cl, nl)]
+        chain_ms = cuda_time_ms(lambda i: ps.prune_scan(*one, **kw), 20)
+        plain_ms = event_ms(lambda: ps.prune_scan_plain(order, pair, d, ids, valid, tq, cl, nl,
+                                                        **kw))
+        per_s = card["sms"] * card["sm_hz"] * F32_OPS_PER_CLK_SM
+        ops_ms = picks * c * 6 / per_s * 1e3  # compare, divide, max: about 6 a pair
+        nbytes = ps.bound_bytes(b, c, picks, lm)
+        bound_ms, bound_by, how = bound(nbytes, dict(ms=ops_ms, way="f32 on the CUDA cores"))
+        shapes.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None, bound_how=how, chain_ms=chain_ms,
+                           shape=dict(b=b, c=c, lm=lm, r=PRUNE_R, picks=picks,
+                                      max_row_picks=int(row_picks.max()),
+                                      one_row_picks=int(row_picks[0]),
+                                      n_alphas=len(kw["alphas"]))))
+        say(f"  prune_scan timing at B={b} C={c} Lm={lm}: kernel {ms:.4f} ms, one row alone "
+            f"{chain_ms:.4f} ms ({int(row_picks[0])} picks), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {how})")
+        del node, cand, cd, pair, cl, nl, args, got, want, one
     say(f"phase 2 kernel vs plain: prune_scan equal at all {len(PRUNE_CASES)} shapes")
     check_deadline("kernel vs plain")
-    return timing
+    return dict(shapes[0], max_abs_err=max_err, shapes=shapes[1:])
 
 
 def check_edge_gather(cap_main: int, card: dict) -> dict:

@@ -22,14 +22,16 @@ and it is valid; a pick raises f[j] to max(f[j], factor(i, j)) for every
 gated j > i.  The result is ``sel`` i32[B, C]: each candidate's pick rank,
 ``UNSELECTED`` for the rest.
 
-Bound on an H100: the C steps of a round are a dependent chain; at most R
-of them pick.  Bytes: the picked candidates' pair rows (C floats each, at
-most B x R x C x 4) and the [B, C] inputs and output.  The kernel
-(``csrc/prune_scan.cu``) runs one block a row with the scan's state in
-shared memory; a step that picks nothing costs no barrier, a pick spreads
-its row's update over the threads and ends in one barrier.  The factor
-and the gate are computed on the fly with the plain version's f32
-operations in its order (no fast math), so ``sel`` is bit-equal.
+Bound on an H100: a row's picks are a chain, each waiting on one read of
+the picked candidate's pair row from device memory; bytes: those rows (C
+floats each, at most B x R x C x 4) and the [B, C] inputs and output.
+The kernel (``csrc/prune_scan.cu``) runs one warp a row, several rows a
+block, so a wave's rows run in one round: position j in lane j % 32, the
+next pick found by one ballot a 32 positions, the picked row copied whole
+into shared memory by ``cp.async`` (and the next pick's row speculatively
+beside it), the label gate one AND a pair on bitmasks built once a row.
+The factor is computed with the plain version's f32 operations in its
+order (no fast math), so ``sel`` is bit-equal.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain PyTorch version below.  ``launches`` counts kernel launches.
@@ -172,11 +174,24 @@ def prune_scan(
                                 node_labels, num_neighbors=num_neighbors, alphas=alphas)
     if device.type != "cuda":
         raise ValueError(f"no prune-scan kernel for device {device}")
+    sel = launch(order, pair_dists, dists, cand_ids, valid, tie_q, cand_labels, node_labels,
+                 num_neighbors=num_neighbors, alphas=alphas)
+    if sel.numel():
+        count_launch()
+    return sel
+
+
+def launch(order, pair_dists, dists, cand_ids, valid, tie_q, cand_labels, node_labels, *,
+           num_neighbors: int, alphas: tuple[float, ...], lib=None) -> torch.Tensor:
+    """The kernel on checked CUDA tensors, uncounted: ``sel``.  ``lib``: the
+    ``bind`` of another build of the same C interface (default: this
+    checkout's)."""
+    device = cand_ids.device
     b, c = cand_ids.shape
     sel = torch.empty((b, c), dtype=torch.int32, device=device)
     if b * c == 0:
         return sel
-    fn, smem_bytes = _kernel()
+    fn, smem_bytes = lib if lib is not None else bind(_build.load("prune_scan"))
     if smem_bytes(c) > _build.MAX_SHARED_BYTES:
         raise ValueError(f"{c} candidates need {smem_bytes(c)} B of shared memory a row, "
                          f"over the card's {_build.MAX_SHARED_BYTES}")
@@ -193,7 +208,6 @@ def prune_scan(
     )
     if err != 0:
         raise RuntimeError(f"prune-scan kernel launch failed: CUDA error {err}")
-    count_launch()
     return sel
 
 
@@ -209,8 +223,9 @@ def _alphas_on(alphas: tuple, device) -> torch.Tensor:
     return _ALPHAS[key]
 
 
-def _kernel():
-    lib = _build.load("prune_scan")
+def bind(lib: ctypes.CDLL):
+    """(launch function, shared-bytes function) of a loaded build of
+    ``csrc/prune_scan.cu``, with their ctypes signatures set."""
     fn = lib.pgvs_prune_scan
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -228,13 +243,17 @@ def bound_bytes(b: int, c: int, picks: int, lm: int = 0) -> int:
     return picks * c * 4 + b * c * (4 * 4 + 1 + 4) + (b * c + b) * lm * 4
 
 
-def check_inputs(b: int, c: int, lm: int, device, generator=None):
+def check_inputs(b: int, c: int, lm: int, device, generator=None, *, label_values: int = 6,
+                 sentinel_share: float = 0.3, edge_rows: bool = False):
     """Random inputs of one kernel check, heavy in ties: (node_ids [B],
     cand_ids [B, C] with the node in column 0 and ~10% INVALID_ID, cand_dists
     [B, C] in steps of 0.1 from 0, pair_dists [B, C, C] as L1 distances
     over 3 of points on a 4-step grid (many zeros), and, for ``lm`` > 0,
-    cand_labels [B, C, Lm] and node_labels [B, Lm] drawn from 6 labels
-    with ~30% sentinel padding; else None, None)."""
+    cand_labels [B, C, Lm] and node_labels [B, Lm] drawn from
+    ``label_values`` labels with ``sentinel_share`` sentinel padding; else
+    None, None).  ``edge_rows`` (B >= 4): row 0 has no valid candidate; on
+    a labeled check row 1's node labels are all sentinel, every other
+    candidate of row 2 carries none, and row 3's node repeats label 2."""
     kw = dict(device=device, generator=generator)
     node_ids = torch.randint(0, 4 * c, (b,), dtype=torch.int32, **kw)
     cand_ids = torch.randint(0, 4 * c, (b, c), dtype=torch.int32, **kw)
@@ -243,19 +262,62 @@ def check_inputs(b: int, c: int, lm: int, device, generator=None):
     cand_dists = torch.randint(0, 30, (b, c), **kw).to(torch.float32) / 10.0
     pts = torch.randint(0, 4, (b, c, 3), **kw).to(torch.float32)
     pair = (pts[:, :, None, :] - pts[:, None, :, :]).abs().sum(-1) / 3.0
+    if edge_rows:
+        cand_ids[0] = -1
     if lm == 0:
         return node_ids, cand_ids, cand_dists, pair, None, None
 
     def labels(shape):
-        lab = torch.randint(0, 6, shape, dtype=torch.int32, **kw)
-        lab[torch.rand(shape, **kw) < 0.3] = 2**31 - 1
+        lab = torch.randint(0, label_values, shape, dtype=torch.int32, **kw)
+        lab[torch.rand(shape, **kw) < sentinel_share] = 2**31 - 1
         return lab
 
-    return node_ids, cand_ids, cand_dists, pair, labels((b, c, lm)), labels((b, lm))
+    cand_labels, node_labels = labels((b, c, lm)), labels((b, lm))
+    if edge_rows:
+        node_labels[1] = 2**31 - 1
+        cand_labels[2, ::2] = 2**31 - 1
+        node_labels[3] = 2
+    return node_ids, cand_ids, cand_dists, pair, cand_labels, node_labels
 
 
-# The cases the kernel is held to on the card (tests/test_torch_kernels.py):
-# (B, C, Lm, R, max_alpha): unlabeled and labeled rows, one and two alpha
-# rounds, a degree bound that stops the scan early.
-CHECK_CASES = [(64, 40, 0, 10, 1.2), (64, 166, 0, 65, 1.2), (64, 166, 2, 65, 1.2),
-               (64, 332, 0, 65, 1.0), (64, 332, 1, 65, 1.2), (32, 332, 3, 8, 1.2)]
+# The cases the kernel is held to on the card (tests/test_torch_kernels.py)
+# and, cut to a few rows, on the CPU through its emulated source
+# (tests/test_torch_prune_emulated.py): the main path's C (40, 129, 166,
+# 332), unlabeled and labeled, one to three alpha rounds, a degree bound
+# that stops the scan early; then C around one slot of 32 lanes (1, 31,
+# 32, 33), every register-slot count (C = 100 and 230 too), R = 1 and R
+# reached in the first round, an all-invalid row, all-sentinel and
+# repeated labels, 1 to 3 labels, C past the register path (f and order
+# in shared memory), and 40 labels from 1,000 (the label masks' second
+# word).
+CHECK_CASES = [
+    dict(b=64, c=40, lm=0, r=10, max_alpha=1.2),
+    dict(b=64, c=166, lm=0, r=65, max_alpha=1.2),
+    dict(b=64, c=166, lm=2, r=65, max_alpha=1.2),
+    dict(b=64, c=332, lm=0, r=65, max_alpha=1.0),
+    dict(b=64, c=332, lm=1, r=65, max_alpha=1.2),
+    dict(b=32, c=332, lm=3, r=8, max_alpha=1.2),
+    dict(b=64, c=1, lm=0, r=10, max_alpha=1.2),
+    dict(b=64, c=31, lm=1, r=65, max_alpha=1.5, edge_rows=True),
+    dict(b=64, c=32, lm=2, r=1, max_alpha=1.2, edge_rows=True),
+    dict(b=64, c=33, lm=3, r=65, max_alpha=1.5, edge_rows=True),
+    dict(b=64, c=100, lm=1, r=20, max_alpha=1.2, edge_rows=True),
+    dict(b=64, c=129, lm=0, r=65, max_alpha=1.2, edge_rows=True),
+    dict(b=64, c=129, lm=2, r=4, max_alpha=1.5, edge_rows=True),
+    dict(b=32, c=230, lm=0, r=65, max_alpha=1.5),
+    dict(b=32, c=353, lm=0, r=65, max_alpha=1.5, edge_rows=True),
+    dict(b=16, c=1200, lm=2, r=65, max_alpha=1.2, edge_rows=True),
+    dict(b=32, c=166, lm=40, r=65, max_alpha=1.2, label_values=1000, sentinel_share=0.05,
+         edge_rows=True),
+    dict(b=8, c=700, lm=40, r=65, max_alpha=1.5, label_values=1000, sentinel_share=0.05),
+]
+
+
+def case_inputs(case: dict, device, generator=None):
+    """``check_inputs`` of one CHECK_CASES entry."""
+    opts = {k: v for k, v in case.items() if k not in ("b", "c", "lm", "r", "max_alpha")}
+    return check_inputs(case["b"], case["c"], case["lm"], device, generator, **opts)
+
+
+def case_id(case: dict) -> str:
+    return "-".join(f"{k}{v}" for k, v in case.items())

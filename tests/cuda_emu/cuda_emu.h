@@ -1,5 +1,6 @@
-// The CUDA features csrc/beam_search.cu uses, emulated on the CPU so that
-// its source runs under g++ (tests/test_torch_beam_emulated.py).  Every
+// The CUDA features csrc/beam_search.cu and csrc/prune_scan.cu use,
+// emulated on the CPU so that their sources run under g++
+// (tests/test_torch_beam_emulated.py, tests/test_torch_prune_emulated.py).  Every
 // CUDA thread of a block is a fiber (ucontext) on the calling thread, run
 // in turn until it reaches a barrier: __syncthreads waits for the block,
 // __syncwarp and the warp-wide steps (shuffles, votes, which exchange values
@@ -17,6 +18,7 @@
 
 #include <algorithm>
 #include <cstring>
+#include <deque>
 #include <memory>
 #include <vector>
 
@@ -27,6 +29,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(threads, blocks)
 #define __align__(n)
 #define __grid_constant__
@@ -67,9 +70,15 @@ inline EmuIndex threadIdx, blockIdx;
 // w) and each warp's exchange buffer.
 struct EmuBlock {
   enum { kRunnable, kWaiting, kDone };
+  struct Copy {
+    void* dst;
+    std::vector<unsigned char> bytes;
+  };
   struct Fiber {
     ucontext_t ctx;
     int state, barrier;
+    std::vector<Copy> open;                  // cp.async copies not yet committed
+    std::deque<std::vector<Copy>> batches;   // committed, not yet landed
   };
   std::vector<Fiber> fibers;
   std::vector<int> arrived;
@@ -132,6 +141,40 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
 }
 inline bool __any_sync(unsigned mask, bool pred) { return __ballot_sync(mask, pred) != 0; }
 
+// cp.async through the pipeline primitives: a thread's copies wait in
+// its open batch, a commit closes the batch, and a copy lands only when
+// __pipeline_wait_prior(n) leaves at most n of the thread's later batches
+// pending, so a kernel that reads a buffer before waiting reads garbage.
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  EmuBlock::Copy c{dst, {}};
+  c.bytes.assign(static_cast<const unsigned char*>(src),
+                 static_cast<const unsigned char*>(src) + n);
+  emu_block->fibers[threadIdx.x].open.push_back(std::move(c));
+}
+inline void __pipeline_commit() {
+  EmuBlock::Fiber& f = emu_block->fibers[threadIdx.x];
+  f.batches.push_back(std::move(f.open));
+  f.open.clear();
+}
+inline void __pipeline_wait_prior(size_t n) {
+  EmuBlock::Fiber& f = emu_block->fibers[threadIdx.x];
+  while (f.batches.size() > n) {
+    for (auto& c : f.batches.front()) std::memcpy(c.dst, c.bytes.data(), c.bytes.size());
+    f.batches.pop_front();
+  }
+}
+
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, 4);
+  return x;
+}
+
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline unsigned __umulhi(unsigned a, unsigned b) {
@@ -187,6 +230,8 @@ void emu_launch(Kernel kernel, const P& p, int blocks, int threads, size_t smem)
     for (int t = 0; t < threads; ++t) {
       EmuBlock::Fiber& f = blk.fibers[t];
       f.state = EmuBlock::kRunnable;
+      f.open.clear();
+      f.batches.clear();
       getcontext(&f.ctx);
       f.ctx.uc_stack.ss_sp = stacks.get() + kStack * t;
       f.ctx.uc_stack.ss_size = kStack;

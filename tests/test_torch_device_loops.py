@@ -64,16 +64,38 @@ def _prune_inputs(seed, b, c, lm):
     return node_ids, cand_ids, cand_d, pair, _labels(rng, (b, c, lm)), _labels(rng, (b, lm))
 
 
-@pytest.mark.parametrize("lm", [0, 2])
-@pytest.mark.parametrize("max_alpha", [1.0, 1.2])
-def test_prune_scan_split_matches_jax(lm, max_alpha):
+# (lm, max_alpha, C, edge rows): the first four keep their earlier ids.
+# Edge rows: row 0's node repeats one label, row 1's node labels are all
+# sentinel, every other candidate of row 2 carries no label, row 3 has no
+# valid candidate.  C=45 and C=70 are not multiples of 32 (the kernel's
+# lane slots); max_alpha 1.5 gives three alpha rounds.
+SPLIT_CASES = [
+    pytest.param(0, 1.0, 48, False, id="1.0-0"),
+    pytest.param(0, 1.2, 48, False, id="1.2-0"),
+    pytest.param(2, 1.0, 48, False, id="1.0-2"),
+    pytest.param(2, 1.2, 48, False, id="1.2-2"),
+    pytest.param(2, 1.5, 45, True, id="three-rounds-edge-rows-c45"),
+    pytest.param(3, 1.2, 70, True, id="edge-rows-c70-lm3"),
+    pytest.param(0, 1.5, 70, True, id="three-rounds-c70"),
+]
+
+
+@pytest.mark.parametrize("lm,max_alpha,c,edge_rows", SPLIT_CASES)
+def test_prune_scan_split_matches_jax(lm, max_alpha, c, edge_rows):
     """The torch sort + ``prune_scan``'s plain version equal JAX's
-    ``robust_prune``: one alpha round at 1.0, two at 1.2; labeled rows
-    through the label gate (tolerance: none)."""
-    b, c, r = 12, 48, 10
+    ``robust_prune``: one alpha round at 1.0, two at 1.2, three at 1.5;
+    labeled rows through the label gate, with repeated and all-sentinel
+    labels (tolerance: none)."""
+    b, r = 12, 10
     node_ids, cand_ids, cand_d, pair, cl, nl = _prune_inputs(3 + lm, b, c, lm)
+    if edge_rows:
+        if lm:
+            nl[0] = nl[0, 0] if nl[0, 0] != LABEL_SENTINEL else 1
+            nl[1] = LABEL_SENTINEL
+            cl[2, ::2] = LABEL_SENTINEL
+        cand_ids[3] = -1
     alphas = prune.alpha_schedule(max_alpha)
-    assert len(alphas) == (1 if max_alpha == 1.0 else 2)
+    assert len(alphas) == {1.0: 1, 1.2: 2, 1.5: 3}[max_alpha]
     want = jprune.robust_prune(
         *map(jnp.asarray, (node_ids, cand_ids, cand_d, pair, cl, nl)),
         num_neighbors=r, alphas=alphas, labeled=lm > 0,

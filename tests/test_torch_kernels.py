@@ -533,17 +533,17 @@ def test_beam_search_kernel_matches_plain_on_card(cuda_device, inputs, search):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,lm,r,max_alpha", prune_scan.CHECK_CASES)
-def test_prune_scan_kernel_matches_plain_on_card(cuda_device, b, c, lm, r, max_alpha):
+@pytest.mark.parametrize("case", prune_scan.CHECK_CASES, ids=prune_scan.case_id)
+def test_prune_scan_kernel_matches_plain_on_card(cuda_device, case):
     """On the card the kernel launches once and its picks equal the plain
     scan's exactly, and robust_prune on the card equals it on the CPU."""
     from pgvectorscale_tpu_torch.graph.prune import alpha_schedule, robust_prune, sort_candidates
 
     g = torch.Generator(device=cuda_device).manual_seed(9)
-    inputs = prune_scan.check_inputs(b, c, lm, cuda_device, g)
+    inputs = prune_scan.case_inputs(case, cuda_device, g)
     node, cand, cd, pair, cl, nl = inputs
     order, ids, d, valid, tq = sort_candidates(node, cand, cd)
-    kw = dict(num_neighbors=r, alphas=alpha_schedule(max_alpha))
+    kw = dict(num_neighbors=case["r"], alphas=alpha_schedule(case["max_alpha"]))
     before = prune_scan.launches
     got = prune_scan.prune_scan(order, pair, d, ids, valid, tq, cl, nl, **kw)
     assert prune_scan.launches == before + 1
