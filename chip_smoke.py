@@ -39,7 +39,17 @@ Phases, each reported on a timestamped, flushed line:
    bit-equal to its plain version at PRUNE_CASES (B = 4,096, C = 166 and
    332, unlabeled and labeled, and the overflow prune's C = 129); each
    timed (kernel, plain, one query or row alone) beside its bound, every
-   prune shape.
+   prune shape.  The full-precision loop kernels: beam_search_full
+   against ``beam_search_full_plain`` at FULL_CASES (768 wide over phase
+   3's cap: the plain-storage search and build wave under cosine on float
+   rows, within 1e-5 relative with ids equal up to a near-tie; integer
+   rows under L2 and inner product in f32, L2 in bf16, a 1-label search
+   and the scratch path, bit-equal; int8 rows under cosine, within 1e-5),
+   iter_step against ``iter_step_plain`` at ITER_CASES (the stream's
+   shape over 1M slots on the codes, bit-equal; f32 L2 and bf16 inner
+   product on integer rows, bit-equal; int8 cosine, within 1e-5), each
+   through its refills and a starvation reseed; the search, the build
+   wave and the stream's first refill timed beside their bounds.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -88,12 +98,16 @@ Phases, each reported on a timestamped, flushed line:
 9. exact: an SBQ build with build_distance "exact" (full-precision
    traversal) of the first 95,904 rows, the search of phase 4 over them,
    then one ``add`` of the last 4,096 rows and the graph checks; the
-   build and the add launch only prune_scan, the search beam_search.
+   build and the add launch beam_search_full and prune_scan and no
+   Hamming kernel, the search beam_search.
 10. plain: a plain-storage cosine build of the corpus (full-precision
    traversal, no codes) and a search at L=100 (no rescore: the traversal
-   distances are exact), recall against ``ExactIndex``; no Hamming or
-   beam-search kernel launches on this path, only prune_scan.  Then, outside the path, the device time of
-   full-precision traversal's gather-dot at a build and a search step.
+   distances are exact), recall against ``ExactIndex``; this path
+   launches beam_search_full and prune_scan and no Hamming kernel.  Then,
+   outside the path, the plain loops agreement (the search and one wave
+   of 4,096 rows through the kernels and through their plain versions:
+   recall@10 within 0.002, the wave's graph invariants) and the device
+   time of the plain loop's gather-dot at a build and a search step.
 11. filtered: the JAX suite's filtered deployment (benchmarks/suite.py
    ``run_filtered``: 100 labels with popularity 1/rank, 1-2 a row, bf16
    vectors, 2 bits/dim) on the corpus, built exact-prune (R=50, L=100):
@@ -142,12 +156,13 @@ Phases, each reported on a timestamped, flushed line:
    queries each pull until 10 rows pass.  Hard checks: no id twice in a
    stream, no deleted id, each yielded distance within 1e-5 of the int8
    exact rescore of its id.  Recall@10 against the filtered exact top-10,
-   rows pulled, visits (``total_visits``), microseconds per visit and
-   edge_gather launches per visit.  Then ``iter_step`` on the card emits
+   rows pulled, visits (``total_visits``), microseconds per visit, and
+   the refills against the iter_step launches (one a refill) and
+   edge_gather's (none).  Then ``iter_step`` on the card emits
    the CPU plain path's ids over 3 refills for 4 queries (a CPU copy of
    the index), and a full-table scan of a 4,096-row int8 index with 10%
-   deleted yields every live row once in at most
-   ``count`` visits.
+   deleted yields every live row once in at most ``count`` visits, one
+   iter_step launch a refill and no edge_gather.
 15. int8 life cycle: phase 7 with ``vector_dtype="int8"`` (the reader's
    arrays it checks include ``vec_scales``).
 16. durable life cycle: a child process on the card (loading phase 1's
@@ -259,37 +274,38 @@ BUDGET_S = 600
 DEADLINES = {
     "device": 60,
     "kernel build": 130,
-    "kernel vs plain": 175,
-    "build": 195,
-    "search": 203,
-    "loops agreement": 208,
-    "agreement": 208,
-    "windows": 220,
-    "storage build": 235,
-    "storage search": 241,
-    "life cycle": 257,
-    "refine build": 275,
-    "refine search": 281,
-    "exact build": 293,
-    "exact search": 299,
-    "exact add": 305,
-    "plain build": 317,
-    "plain search": 323,
-    "filtered build": 325,
-    "filtered search": 335,
-    "filtered agreement": 340,
-    "filtered life cycle": 355,
-    "int8 build": 360,
-    "int8 search": 375,
-    "rescore tiers": 380,
-    "stream": 405,
-    "int8 life cycle": 415,
-    "durable life cycle": 445,
-    "host graph": 450,
-    "cli": 500,
-    "high dim": 505,
-    "sift build": 530,
-    "sift search": 555,
+    "kernel vs plain": 185,
+    "build": 205,
+    "search": 213,
+    "loops agreement": 218,
+    "agreement": 218,
+    "windows": 230,
+    "storage build": 245,
+    "storage search": 251,
+    "life cycle": 267,
+    "refine build": 285,
+    "refine search": 291,
+    "exact build": 303,
+    "exact search": 309,
+    "exact add": 315,
+    "plain build": 327,
+    "plain search": 333,
+    "plain loops agreement": 338,
+    "filtered build": 340,
+    "filtered search": 350,
+    "filtered agreement": 355,
+    "filtered life cycle": 370,
+    "int8 build": 375,
+    "int8 search": 390,
+    "rescore tiers": 395,
+    "stream": 420,
+    "int8 life cycle": 430,
+    "durable life cycle": 460,
+    "host graph": 465,
+    "cli": 515,
+    "high dim": 520,
+    "sift build": 545,
+    "sift search": 565,
     "8-bit build": 570,
     "8-bit search": 575,
     "sharded build": 590,
@@ -326,6 +342,10 @@ MIN_RECALL = 0.80
 LC_BUILD, LC_BATCH, LC_BATCHES, LC_DELETE, LC_REUSE = 2048, 4096, 8, 0.10, 2048
 # The "exact" path builds on all but the last EXACT_ADD rows and adds them.
 EXACT_ADD = 4096
+# Phase 10's loops agreement: the largest recall@10 difference between the
+# plain-storage search through the kernels and through the plain loops
+# (float sums in other orders may part the two at a near-tie).
+PLAIN_RECALL_TOL = 0.002
 # Window phase: (L, rescore, E) points; the wide one is bench.py's.
 WINDOW_POINTS = ((100, 300, 4), (200, 1500, 2))
 WINDOW_STRATEGIES = ("expand", "beam", "scored")
@@ -346,7 +366,8 @@ MIN_FILTERED_RECALL = 0.50
 # as in the port), so its queries must get min(10, reach) rows.
 RARE_LABELS, RARE_QUERIES = 5, 64
 RARE_REACH_FLOOR = {96: 209, 99: 271, 95: 269, 94: 277, 98: 1}
-KERNELS = ("edge_gather", "hamming_matrix", "beam_search", "prune_scan")
+KERNELS = ("edge_gather", "hamming_matrix", "beam_search", "prune_scan", "beam_search_full",
+           "iter_step")
 # The kernels every build path with searched waves launches: the beam
 # search (each searched wave) and the prune (every wave).  Since the beam
 # loop is a kernel, edge_gather serves only the "expand" rescore window and
@@ -355,6 +376,11 @@ BUILD_KERNELS = ("beam_search", "prune_scan")
 # The life cycles' kernels: seed waves through the Hamming matrix, then the
 # build kernels.
 LIFE_KERNELS = ("hamming_matrix",) + BUILD_KERNELS
+# The kernels of a full-precision build (plain storage, build_distance
+# "exact"): the full-precision beam search and the prune; and the Hamming
+# kernels, which such a build must not launch.
+FULL_BUILD_KERNELS = ("beam_search_full", "prune_scan")
+HAMMING_KERNELS = ("edge_gather", "hamming_matrix", "beam_search")
 # Phase 13, benchmarks/scale.py's deployment: rows (cut from 5,000,000),
 # seed, and the (L, rescore, E, strategy, visit_factor) points; the recall
 # floor holds at the widest "expand" point.  Ground truth runs in chunks
@@ -498,9 +524,72 @@ BEAM_CASES = [
 # shape is timed; the first is the kernels line's.
 PRUNE_CASES = [(4096, 166, 0), (4096, 332, 0), (4096, 166, 2), (4096, 332, 2), (4096, 129, 0)]
 PRUNE_R, PRUNE_MAX_ALPHA = 50, 1.2
+# Phase 2, the full-precision beam kernel against beam_search_full_plain:
+# (name, ops.beam_search_full.check_inputs arguments, search arguments),
+# 768 wide over phase 3's cap.  The plain-storage search of phase 10 (Q =
+# 1,024, cosine on float rows, L=100, budget 166, E=4) and its build wave
+# (B = 4,096, the history kept), both within float32 rounding; integer
+# rows, bit-equal to the plain loop: L2 (the "exact" build's distance in
+# tests/test_torch_kernels.py) and inner product in f32, L2 in bf16, a
+# 1-label filtered search, and the scratch path (a "scored" window of 300
+# with the shared limit at 0); int8 rows under cosine (the int8 tier's
+# rows), within float32 rounding.  "search" and "build wave" are timed.
+FULL_CASES = [
+    ("search", dict(q=1024, d=768, r=65, values=0),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=False,
+          distance_type="COSINE")),
+    ("build wave", dict(q=4096, d=768, r=65, values=0),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=True,
+          distance_type="COSINE")),
+    ("L2 integer", dict(q=1024, d=768, r=65),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=True,
+          distance_type="L2")),
+    ("IP integer", dict(q=1024, d=768, r=65),
+     dict(search_list_size=100, max_iters=166, expand_factor=2, track_hist=False,
+          distance_type="INNER_PRODUCT")),
+    ("bf16 L2 integer", dict(q=1024, d=768, r=65, dtype="bfloat16"),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=False,
+          distance_type="L2")),
+    ("1-label", dict(q=1024, d=768, r=65, s=2, lm=2, lq=1),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=False,
+          distance_type="L2")),
+    ("scratch", dict(q=256, d=768, r=65),
+     dict(search_list_size=100, max_iters=166, expand_factor=2, track_hist=False,
+          window_n=300, shared_limit=0, distance_type="L2")),
+    ("int8 cosine", dict(q=1024, d=768, r=65, dtype="int8", values=0),
+     dict(search_list_size=100, max_iters=166, expand_factor=4, track_hist=False,
+          distance_type="COSINE")),
+]
+# Phase 2, the iterator kernel against iter_step_plain: (name,
+# ops.iter_step.check_inputs arguments, traversal arguments).  The stream's
+# shape (phase 14: 1 bit a dim of 768, W = 24, over phase 13's 1M slots, R =
+# 65, frontier 256, emit_n 128 then 256 with the iterator's budgets), then
+# full precision 768 wide over phase 3's cap: integer rows under L2 in f32
+# and inner product in bf16 (bit-equal), int8 rows under cosine (within
+# float32 rounding), and codes of num_neighbors 200 (R = 260 slots, wider
+# than the kernel's block).  Each runs its refills and a starvation reseed;
+# the first refills of "stream" and "wide R=260" are timed.
+SCALE_CAP = ((SCALE_N + 1023) // 1024) * 1024
+ITER_CASES = [
+    ("stream", dict(cap=SCALE_CAP, r=65, use_codes=True, w=24),
+     dict(frontier=256, distance_type="COSINE", refills=((128, 512), (256, 1024)))),
+    ("f32 L2 integer", dict(r=65, use_codes=False, d=768),
+     dict(frontier=256, distance_type="L2", refills=((128, 512),))),
+    ("bf16 IP integer", dict(r=65, use_codes=False, d=768, dtype="bfloat16"),
+     dict(frontier=256, distance_type="INNER_PRODUCT", refills=((128, 512),))),
+    ("int8 cosine", dict(r=65, use_codes=False, d=768, dtype="int8", values=0),
+     dict(frontier=256, distance_type="COSINE", refills=((128, 512),))),
+    ("wide R=260", dict(r=260, use_codes=True, w=24),
+     dict(frontier=256, distance_type="COSINE", refills=((128, 512), (256, 1024)))),
+]
 # Per-SM f32 operations a clock (CUDA C Programming Guide, compute
-# capability 9.0): the prune's factor arithmetic.
+# capability 9.0): the prune's factor arithmetic, the full-precision
+# kernels' FMAs.
 F32_OPS_PER_CLK_SM = 128
+# Device-memory latency of one dependent read on an NVIDIA H100 80GB HBM3
+# at 700 W (microbench/prune_ab.py's HBM read, PR 16's run P): the chain
+# bounds of the full-precision beam search and the iterator.
+HBM_READ_NS = 350.62
 
 
 def elapsed() -> float:
@@ -632,7 +721,9 @@ def phase_kernel_check(cap_main: int, card: dict) -> dict:
     return {"edge_gather": check_edge_gather(cap_main, card),
             "hamming_matrix": check_hamming_matrix(card),
             "beam_search": check_beam_search(cap_main, card),
-            "prune_scan": check_prune_scan(card)}
+            "prune_scan": check_prune_scan(card),
+            "beam_search_full": check_beam_search_full(cap_main, card),
+            "iter_step": check_iter_step(cap_main, card)}
 
 
 def event_ms(fn) -> float:
@@ -804,6 +895,241 @@ def check_prune_scan(card: dict) -> dict:
     say(f"phase 2 kernel vs plain: prune_scan equal at all {len(PRUNE_CASES)} shapes")
     check_deadline("kernel vs plain")
     return dict(shapes[0], max_abs_err=max_err, shapes=shapes[1:])
+
+
+def f32_ops_ms(card: dict, ops: int) -> dict:
+    """Least time for ``ops`` f32 instructions (an FMA, a subtract) on the
+    CUDA cores at F32_OPS_PER_CLK_SM a clock on each SM."""
+    per_s = card["sms"] * card["sm_hz"] * F32_OPS_PER_CLK_SM
+    return dict(ms=ops / per_s * 1e3, way="f32 on the CUDA cores")
+
+
+def case_tensors(inputs: dict) -> dict:
+    """A FULL_CASES / ITER_CASES inputs dict with the dtype named by its
+    string made a torch dtype."""
+    import torch
+
+    out = dict(inputs)
+    if "dtype" in out:
+        out["dtype"] = getattr(torch, out["dtype"])
+    return out
+
+
+def matched_dist_err(pairs) -> float:
+    """Largest |d_a - d_b| over (ids_a, d_a, ids_b, d_b) tensors, at the
+    entries where the two carry the same id and both distances are
+    finite: the distance error of a kernel that may order a near-tie
+    differently from its plain version."""
+    import torch
+
+    err = 0.0
+    for ia, da, ib, db in pairs:
+        mask = (ia == ib) & torch.isfinite(da) & torch.isfinite(db)
+        if bool(mask.any()):
+            err = max(err, float((da.double() - db.double()).abs()[mask].max()))
+    return err
+
+
+def check_beam_search_full(cap_main: int, card: dict) -> dict:
+    """The full-precision beam kernel against ``beam_search_full_plain`` on
+    the card at every FULL_CASES shape, over random graphs with
+    INVALID_EDGE_SHARE of the slots empty: every output bit-equal on
+    integer rows under L2 and inner product (f32, bf16), else within 1e-5
+    relative with ids equal up to a near-tie (``results_close``).  The
+    timed shapes: the kernel (CUDA events behind the device sleep), the
+    plain loop (events around one call), one query alone (Q=1: the chain of
+    dependent iterations) and the bound from the search's own visits
+    (``ops.beam_search_full.bound_bytes``; operations: the scored pairs'
+    FMAs and, L2, subtractions)."""
+    import torch
+
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.ops import beam_search_full as bsf
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    timed, max_err = {}, 0.0
+    for name, inputs, search in FULL_CASES:
+        inputs = dict(dict(cap=cap_main, invalid_share=INVALID_EDGE_SHARE), **case_tensors(inputs))
+        search = dict(dict(window_n=0), **dict(
+            search, distance_type=DistanceType[search["distance_type"]]))
+        limit = search.pop("shared_limit", None)
+        arrays, qv, starts, ql = bsf.check_inputs(**inputs, device="cuda", generator=g)
+        plain = bsf.beam_search_full_plain(arrays, qv, starts, ql, **search)
+        kw = {} if limit is None else dict(shared_limit=limit)
+        got = bsf.beam_search_full(arrays, qv, starts, ql, **search, **kw)
+        torch.cuda.synchronize()
+        exact = bsf.exact_case(inputs, search)
+        bad = bsf.results_equal(got, plain) if exact else bsf.results_close(got, plain)
+        err = matched_dist_err(
+            (getattr(got, i), getattr(got, d), getattr(plain, i), getattr(plain, d))
+            for i, d in (("beam_ids", "beam_dists"), ("hist_ids", "hist_dists"),
+                         ("window_ids", "window_dists")))
+        max_err = max(max_err, err)
+        say(f"  beam_search_full {name} Q={inputs['q']} D={inputs['d']} "
+            f"{inputs.get('dtype', torch.float32)} {search['distance_type'].name} "
+            f"L={search['search_list_size']} E={search['expand_factor']}"
+            f"{'' if limit is None else f' shared limit {limit}'}: {got.iters} iterations: "
+            f"{('equal' if exact else 'within 1e-5') if not bad else 'DIFFERENT in ' + ', '.join(bad)} "
+            f"(max abs err of the distances at equal ids {err}; result rows equal "
+            f"{float((got.beam_ids == plain.beam_ids).all(dim=1).float().mean()):.4f})")
+        if bad:
+            fail(f"beam_search_full differs from its plain version at {name}: {bad}")
+        if name in ("search", "build wave"):
+            timed[name] = time_beam_search_full(arrays, qv, starts, ql, search, card)
+        del arrays, qv, starts, ql, plain, got
+    say(f"phase 2 kernel vs plain: beam_search_full agrees at all {len(FULL_CASES)} shapes")
+    check_deadline("kernel vs plain")
+    timing = dict(timed["search"])
+    timing["max_abs_err"] = max_err
+    timing["build_wave"] = {k: v for k, v in timed["build wave"].items() if k != "bound_how"}
+    return timing
+
+
+def time_beam_search_full(arrays, qv, starts, ql, search: dict, card: dict) -> dict:
+    import torch
+
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.ops import beam_search_full as bsf
+
+    kw = dict(search)
+    ms = cuda_time_ms(lambda i: bsf.launch(arrays, qv, starts, ql, **kw), 10)
+    one = [t[:1] for t in (qv, starts, ql)]
+    chain_ms = cuda_time_ms(lambda i: bsf.launch(arrays, *one, **kw), 10)
+    plain_ms = event_ms(lambda: bsf.beam_search_full_plain(arrays, qv, starts, ql, **kw))
+    # The visits, for the bound: the same search with its history kept.
+    res = bsf.beam_search_full(arrays, qv, starts, ql, **dict(kw, track_hist=True))
+    visited = torch.unique(res.hist_ids[res.hist_ids >= 0])
+    nbrs = arrays.adjacency[visited.long()]
+    scored = torch.unique(torch.cat([nbrs[nbrs >= 0], starts[starts >= 0]]))
+    out, _ = bsf.launch(arrays, qv, starts, ql, **kw)
+    out_bytes = sum(t.numel() * t.element_size() for t in out.values()) + qv.shape[0] * 4
+    (q, dt), (s, lq) = qv.shape, (starts.shape[1], ql.shape[1])
+    r, lm = arrays.adjacency.shape[1], arrays.node_labels.shape[1]
+    vecs = arrays.vectors
+    nbytes = bsf.bound_bytes(q, dt, vecs.element_size(), r, s, lq, lm, out_bytes,
+                             int(visited.numel()), int(scored.numel()),
+                             int8=vecs.dtype == torch.int8)
+    pairs = int(res.n_dist_comps.sum())
+    per_elem = 2 if kw["distance_type"] == DistanceType.L2 else 1
+    bound_ms, bound_by, how = bound(nbytes, f32_ops_ms(card, pairs * dt * per_elem))
+    chain_bound_ms = res.iters * 2 * HBM_READ_NS * 1e-6
+    say(f"  beam_search_full timing at Q={q} D={dt} L={kw['search_list_size']} "
+        f"E={kw['expand_factor']} hist={kw['track_hist']}: kernel {ms:.4f} ms ({res.iters} "
+        f"iterations), one query alone {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {how}; {int(visited.numel())} distinct frontier rows, "
+        f"{int(scored.numel())} distinct scored rows, {pairs} scored pairs; the chain "
+        f"{chain_bound_ms:.4f} ms: {res.iters} iterations x 2 dependent reads at "
+        f"{HBM_READ_NS} ns)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bound_how=how, chain_ms=chain_ms,
+                chain_bound_ms=chain_bound_ms, iters=res.iters,
+                shape=dict(q=q, d=dt, r=r, cap=arrays.adjacency.shape[0],
+                           dtype=str(vecs.dtype), distance=kw["distance_type"].name,
+                           l=kw["search_list_size"], h=kw["max_iters"],
+                           e=kw["expand_factor"], visited_rows=int(visited.numel()),
+                           scored_rows=int(scored.numel()), scored_pairs=pairs))
+
+
+def check_iter_step(cap_main: int, card: dict) -> dict:
+    """The iterator kernel against ``iter_step_plain`` on the card at every
+    ITER_CASES shape (``ops.iter_step.check_inputs``), through its refills
+    and a starvation reseed: every state field and emitted row bit-equal on
+    the codes and integer rows under L2 and inner product, else the emitted
+    rows and the frontier within 1e-5 relative.  Timed: the first refill of
+    "stream" (the kernel with its window seed and copies, CUDA events
+    behind the device sleep; the plain refill, events around one call),
+    beside its bound from the steps it took (bytes: each visit's adjacency
+    row, its neighbours' visited flags, each scored neighbour's code row,
+    the state written; operations: the Hamming words) and the chain (two
+    dependent device-memory reads a visit); the first refill of "wide
+    R=260" the same way, printed only."""
+    import torch
+
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.graph import iterate
+    from pgvectorscale_tpu_torch.ops import iter_step as its
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    timing, max_err = None, 0.0
+    for name, inputs, traversal in ITER_CASES:
+        inputs = dict(dict(cap=cap_main, invalid_share=INVALID_EDGE_SHARE),
+                      **case_tensors(inputs))
+        dist = DistanceType[traversal["distance_type"]]
+        arrays, qv, qc, starts = its.check_inputs(**inputs, device="cuda", generator=g)
+        kw = dict(distance_type=dist, use_codes=inputs["use_codes"])
+        exact = its.exact_case(inputs, dict(traversal, distance_type=dist))
+        state = iterate.init_state(arrays, qv, qc, starts, frontier=traversal["frontier"], **kw)
+        ours = plain = state
+        refills = list(traversal["refills"])
+        visits, case_err = [], 0.0
+        for k, (emit_n, budget) in enumerate(refills + [refills[-1]]):
+            if k == len(refills):
+                nid = iterate.first_unseen(plain, arrays)
+                ours = iterate.reseed(ours, arrays, qv, qc, nid, **kw)
+                plain = iterate.reseed(plain, arrays, qv, qc, nid, **kw)
+            got = iterate.iter_step(ours, arrays, qv, qc, emit_n=emit_n, visit_budget=budget,
+                                    **kw)
+            want = iterate.iter_step_plain(plain, arrays, qv, qc, emit_n=emit_n,
+                                           visit_budget=budget, **kw)
+            torch.cuda.synchronize()
+            bad = its.refill_differs(got, want, exact)
+            err = matched_dist_err([(got[1], got[2], want[1], want[2]),
+                                    (got[0].beam_ids, got[0].beam_dists, want[0].beam_ids,
+                                     want[0].beam_dists)])
+            max_err, case_err = max(max_err, err), max(case_err, err)
+            visits.append(int(got[0].n_visits) - int(ours.n_visits))
+            if bad:
+                fail(f"iter_step differs from iter_step_plain at {name}, refill {k}: {bad}")
+            ours, plain = got[0], want[0]
+        say(f"  iter_step {name} cap={inputs['cap']} "
+            f"{'W=' + str(inputs['w']) if inputs['use_codes'] else 'D=' + str(inputs['d'])} "
+            f"{inputs.get('dtype', torch.float32) if not inputs['use_codes'] else 'codes'} "
+            f"{dist.name}: "
+            f"refills {refills} + a reseed, visits {visits}: "
+            f"{'equal' if exact else 'within 1e-5'} (max abs err {case_err})")
+        if name == "stream":
+            timing = time_iter_step(arrays, qv, qc, state, refills[0], kw, card)
+        elif name == "wide R=260":  # printed only: the kernels line keeps the stream's
+            time_iter_step(arrays, qv, qc, state, refills[0], kw, card)
+        del arrays, qv, qc, starts, state, ours, plain, got, want
+    say(f"phase 2 kernel vs plain: iter_step agrees at all {len(ITER_CASES)} shapes")
+    check_deadline("kernel vs plain")
+    return dict(timing, max_abs_err=max_err)
+
+
+def time_iter_step(arrays, qv, qc, state, refill, kw: dict, card: dict) -> dict:
+    from pgvectorscale_tpu_torch.graph import iterate
+    from pgvectorscale_tpu_torch.ops import iter_step as its
+
+    emit_n, budget = refill
+    win_d, win_ids = iterate.window_seed(state, emit_n)
+    call = dict(visit_budget=budget, **kw)
+    ms = cuda_time_ms(lambda i: its.launch(state, arrays, qv, qc, win_ids, win_d, **call), 5)
+    plain_ms = event_ms(lambda: iterate.iter_step_plain(state, arrays, qv, qc, emit_n=emit_n,
+                                                        **call))
+    new, ids, d, steps = its.launch(state, arrays, qv, qc, win_ids, win_d, **call)
+    steps = int(steps)
+    scored = int(new.n_comps) - int(state.n_comps)
+    cap, r = arrays.adjacency.shape
+    w = arrays.codes.shape[1]
+    f = state.beam_ids.shape[0]
+    # A visit: its adjacency row, its neighbours' visited flags, its visited
+    # flag and vdist written; a scored neighbour: its code row; the frontier
+    # and window read and written once.
+    nbytes = steps * (r * 4 + r + 5) + scored * w * 4 + 2 * (f * 8 + emit_n * 8)
+    bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, scored, w))
+    chain = steps * 2 * HBM_READ_NS * 1e-6
+    say(f"  iter_step timing at cap={cap} W={w} R={r} F={f} emit_n={emit_n} budget {budget}: "
+        f"kernel {ms:.4f} ms ({steps} visits, {ms / max(steps, 1) * 1e3:.3f} us a visit), plain "
+        f"{plain_ms:.4f} ms ({plain_ms / max(steps, 1) * 1e3:.1f} us a visit), bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {how}; {scored} scored neighbours); the chain "
+        f"{chain:.4f} ms ({steps} visits x 2 dependent reads at {HBM_READ_NS} ns)")
+    # One refill is one query's chain already: "one query alone" is the kernel.
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bound_how=how, chain_ms=ms, chain_bound_ms=chain,
+                us_per_visit=ms / max(steps, 1) * 1e3,
+                shape=dict(cap=cap, w=w, r=r, frontier=f, emit_n=emit_n, budget=budget,
+                           visits=steps, scored=scored))
 
 
 def check_edge_gather(cap_main: int, card: dict) -> dict:
@@ -1264,8 +1590,9 @@ def time_gather_dot(index) -> dict:
 def phase_exact(vectors, queries, counts) -> dict:
     """An SBQ build with build_distance "exact" of all but the last
     EXACT_ADD rows, its search, then one add of those rows; the build and
-    the add traverse in full precision (no Hamming or beam-search kernel)
-    and prune through prune_scan, the search launches beam_search."""
+    the add traverse in full precision (beam_search_full, no Hamming
+    kernel) and prune through prune_scan, the search launches
+    beam_search."""
     import numpy as np
     import torch
 
@@ -1297,11 +1624,10 @@ def phase_exact(vectors, queries, counts) -> dict:
         f"{out['add_peak_bytes']} B; {check_graph(index, 'exact add')}; "
         f"launches {out['launches']}")
     for step in ("build", "add"):
-        if any(out["launches"][step][k] for k in ("edge_gather", "hamming_matrix",
-                                                   "beam_search")):
+        if any(out["launches"][step][k] for k in HAMMING_KERNELS):
             fail(f"the exact {step} launched a Hamming kernel: traversal must be full "
                  f"precision")
-        require(out["launches"][step], ("prune_scan",), f"the exact {step}")
+        require(out["launches"][step], FULL_BUILD_KERNELS, f"the exact {step}")
     require(out["launches"]["search"], ("beam_search",), "the exact index's search")
     check_deadline("exact add")
     return out
@@ -1500,19 +1826,24 @@ def phase_agreement(index, queries, query_labels=None, phase: str = "agreement")
 
 @contextlib.contextmanager
 def plain_loops():
-    """Within: every beam search and prune of the package runs its plain
-    version (the beam loop and the prune scan as Python loops), on the
-    card as anywhere."""
-    from pgvectorscale_tpu_torch.graph import prune, search
+    """Within: every beam search (on the codes and in full precision),
+    prune and iterator refill of the package runs its plain version (the
+    loops from the host), on the card as anywhere."""
+    from pgvectorscale_tpu_torch.graph import iterate, prune, search
     from pgvectorscale_tpu_torch.ops import beam_search as bs
+    from pgvectorscale_tpu_torch.ops import beam_search_full as bsf
     from pgvectorscale_tpu_torch.ops import prune_scan as ps
 
-    saved = search.beam_search_codes, prune.prune_scan
-    search.beam_search_codes, prune.prune_scan = bs.beam_search_codes_plain, ps.prune_scan_plain
+    saved = (search.beam_search_codes, search.beam_search_full, prune.prune_scan,
+             iterate.iter_step)
+    (search.beam_search_codes, search.beam_search_full, prune.prune_scan,
+     iterate.iter_step) = (bs.beam_search_codes_plain, bsf.beam_search_full_plain,
+                           ps.prune_scan_plain, iterate.iter_step_plain)
     try:
         yield
     finally:
-        search.beam_search_codes, prune.prune_scan = saved
+        (search.beam_search_codes, search.beam_search_full, prune.prune_scan,
+         iterate.iter_step) = saved
 
 
 def phase_loops_agreement(index, queries) -> dict:
@@ -1565,6 +1896,79 @@ def phase_loops_agreement(index, queries) -> dict:
         f"{'equal' if out['wave_equal'] else 'DIFFERENT'}")
     if not (out["search_equal"] and out["wave_equal"]):
         fail(f"{phase}: the kernels and the plain loops disagree")
+    check_deadline(phase)
+    return out
+
+
+def phase_plain_loops_agreement(index, vectors, queries) -> dict:
+    """On phase 10's plain-storage index, on the card: ``DiskannIndex
+    .search`` of the queries at L=100, rescore 50 and one searched wave of
+    4,096 rows (``graph.build.insert_wave`` re-inserting 4,096 rows from
+    the middle of the index over the whole graph, into new arrays), once
+    through the kernels (beam_search_full, prune_scan) and once through
+    their plain versions.  Float rows are summed in other orders, so the
+    runs may part at a near-tie: the searches' recall@10 must agree within
+    PLAIN_RECALL_TOL, and each wave's adjacency must hold the graph
+    invariants (ids in range, no self edge, no id twice in a row, degree
+    <= r_max); the share of equal result rows and wave rows is printed.
+    Seconds of each, host clock."""
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch.graph import build
+    from pgvectorscale_tpu_torch.ops import beam_search_full as bsf
+
+    phase = "plain loops agreement"
+    gt = ground_truth(vectors, queries, index.config)
+    qdev = torch.as_tensor(queries).cuda()
+    ctx = build.BuildContext(index.config)
+    nodes = torch.arange(index.count // 2, index.count // 2 + 4096, dtype=torch.int32,
+                         device=index.device)
+    runs, out = [], {}
+    for way in ("kernels", "plain"):
+        with plain_loops() if way == "plain" else contextlib.nullcontext():
+            before = bsf.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ids, _ = index.search(qdev, 10, QueryParams(search_list_size=100, rescore=50))
+            torch.cuda.synchronize()
+            t_search = time.perf_counter() - t
+            res = index.last_search
+            t = time.perf_counter()
+            adj = build.insert_wave(index.arrays, ctx, nodes, prefix_rows=index.count).adjacency
+            torch.cuda.synchronize()
+            t_wave = time.perf_counter() - t
+            launched = bsf.launches - before
+        runs.append((ids, res, adj))
+        out[way] = dict(search_s=t_search, wave_s=t_wave, iters=res.iters,
+                        recall=recall_at_10(ids, gt), beam_search_full_launches=launched)
+    if out["kernels"]["beam_search_full_launches"] == 0 or out["plain"][
+            "beam_search_full_launches"]:
+        fail(f"{phase}: the kernels' run must launch beam_search_full and the plain run not")
+    (ids, res, adj), (p_ids, p_res, p_adj) = runs
+    r_max = index.config.max_neighbors_during_build
+    for way, a in (("kernels", adj), ("plain", p_adj)):
+        rows = a[nodes.long()]
+        valid = rows >= 0
+        s_rows = torch.sort(torch.where(valid, rows, -1 - torch.arange(
+            rows.shape[1], device=rows.device)), dim=1).values
+        if (bool((rows >= index.count).any()) or bool((rows == nodes[:, None]).any())
+                or bool((s_rows[:, 1:] == s_rows[:, :-1]).any())
+                or int(valid.sum(1).max()) > r_max):
+            fail(f"{phase}: the {way} wave broke a graph invariant")
+    out["recall_diff"] = abs(out["kernels"]["recall"] - out["plain"]["recall"])
+    out["result_rows_equal"] = float((ids == p_ids).all(dim=1).float().mean())
+    out["wave_rows_equal"] = float((adj == p_adj).all(dim=1).float().mean())
+    say(f"phase 10 {phase}: search through the kernels {out['kernels']['search_s']:.4f}s "
+        f"(recall@10 {out['kernels']['recall']:.4f}), the plain loops "
+        f"{out['plain']['search_s']:.4f}s ({out['plain']['recall']:.4f}), {res.iters} / "
+        f"{p_res.iters} iterations, {out['result_rows_equal']:.4f} of the result rows equal; "
+        f"wave of {nodes.numel()} rows through the kernels {out['kernels']['wave_s']:.4f}s, "
+        f"the plain loops {out['plain']['wave_s']:.4f}s, {out['wave_rows_equal']:.4f} of the "
+        f"adjacency rows equal, invariants held")
+    if out["recall_diff"] > PLAIN_RECALL_TOL:
+        fail(f"{phase}: recall@10 through the kernels and the plain loops differ by "
+             f"{out['recall_diff']}")
     check_deadline(phase)
     return out
 
@@ -2059,32 +2463,56 @@ def phase_rescore_tiers() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def counting_refills():
+    """Within: ``graph.iterate.iter_step`` (the iterator's refill) counts
+    its calls in the yielded list's first item."""
+    from pgvectorscale_tpu_torch.graph import iterate
+
+    calls = [0]
+    inner = iterate.iter_step
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return inner(*args, **kwargs)
+
+    iterate.iter_step = counted
+    try:
+        yield calls
+    finally:
+        iterate.iter_step = inner
+
+
 def stream_one(index, query, flag) -> dict:
     """One post-filtered stream: pull from ``search_iter`` until STREAM_K
     rows pass ``flag``; no id twice, no deleted id, every distance within
-    1e-5 of the int8 exact rescore of its id."""
+    1e-5 of the int8 exact rescore of its id.  Counts the refills, the
+    iterator kernel's launches and edge_gather's."""
     import numpy as np
     import torch
 
     from pgvectorscale_tpu_torch import QueryParams
     from pgvectorscale_tpu_torch.distance import preprocess_query
     from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.ops import iter_step as its
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    before = edge_gather.launches
-    it = index.search_iter(query, QueryParams(search_list_size=100, rescore=50))
-    ids, dists, hits = [], [], []
-    for nid, d in it:
-        ids.append(nid)
-        dists.append(d)
-        if flag[nid]:
-            hits.append(nid)
-            if len(hits) == STREAM_K:
-                break
+    before = edge_gather.launches, its.launches
+    with counting_refills() as refills:
+        it = index.search_iter(query, QueryParams(search_list_size=100, rescore=50))
+        ids, dists, hits = [], [], []
+        for nid, d in it:
+            ids.append(nid)
+            dists.append(d)
+            if flag[nid]:
+                hits.append(nid)
+                if len(hits) == STREAM_K:
+                    break
     visits = it.total_visits
     secs = time.perf_counter() - t
-    launches = edge_gather.launches - before
+    launches = edge_gather.launches - before[0]
+    iter_launches = its.launches - before[1]
     if len(set(ids)) != len(ids):
         fail("stream: an id came twice")
     if index._deleted_np[ids].any():
@@ -2095,7 +2523,8 @@ def stream_one(index, query, flag) -> dict:
     if err > 1e-5:
         fail(f"stream: yielded distances differ from the int8 rescore by {err}")
     return dict(ids=ids, hits=hits, pulled=len(ids), visits=visits, seconds=secs,
-                launches=launches, dist_err=err)
+                launches=launches, iter_launches=iter_launches, refills=refills[0],
+                dist_err=err)
 
 
 def iterate_agreement(index, queries) -> bool:
@@ -2144,6 +2573,7 @@ def phase_stream(index, queries, flag, filtered_gt) -> dict:
     from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
     from pgvectorscale_tpu_torch.ops import edge_gather
+    from pgvectorscale_tpu_torch.ops import iter_step as its
 
     phase = "stream"
     out = dict(queries=[])
@@ -2159,15 +2589,21 @@ def phase_stream(index, queries, flag, filtered_gt) -> dict:
                pulled_mean=float(np.mean([r["pulled"] for r in qs])),
                visits_mean=visits / len(qs),
                us_per_visit=sum(r["seconds"] for r in qs) / visits * 1e6,
-               launches_per_visit=sum(r["launches"] for r in qs) / visits)
+               launches_per_visit=sum(r["launches"] for r in qs) / visits,
+               refills=sum(r["refills"] for r in qs),
+               iter_launches=sum(r["iter_launches"] for r in qs))
     say(f"phase 14 stream: {STREAM_QUERIES} post-filtered streams (flag on "
         f"{int(flag.sum())} rows): recall@10 {out['recall']:.4f} against the filtered exact "
         f"top-10; rows pulled {out['pulled_mean']:.1f}, visits {out['visits_mean']:.1f} a "
         f"query (pulled {[r['pulled'] for r in qs]}); {out['us_per_visit']:.1f} us a visit, "
-        f"edge_gather launches a visit {out['launches_per_visit']:.3f}; no id twice, no "
-        f"deleted id, distances within {max(r['dist_err'] for r in qs):.2e} of the rescore")
-    if min(r["visits"] for r in qs) <= 0 or out["launches_per_visit"] < 1:
-        fail("stream: the iterator did not traverse through edge_gather")
+        f"{out['refills']} refills, iter_step launches {out['iter_launches']}, edge_gather "
+        f"launches {sum(r['launches'] for r in qs)}; no id twice, no deleted id, distances "
+        f"within {max(r['dist_err'] for r in qs):.2e} of the rescore")
+    if min(r["visits"] for r in qs) <= 0 or any(r["iter_launches"] != r["refills"]
+                                                for r in qs):
+        fail("stream: the iterator did not launch iter_step once a refill")
+    if any(r["launches"] for r in qs):
+        fail("stream: the streams launched edge_gather")
 
     t = elapsed()
     out["agreement"] = iterate_agreement(index, queries)
@@ -2186,20 +2622,26 @@ def phase_stream(index, queries, flag, filtered_gt) -> dict:
     small.delete(doomed)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    before = edge_gather.launches
-    it = small.search_iter(vectors[0], QueryParams(search_list_size=100, rescore=50))
-    got = [nid for nid, _ in it]
+    before = edge_gather.launches, its.launches
+    with counting_refills() as refills:
+        it = small.search_iter(vectors[0], QueryParams(search_list_size=100, rescore=50))
+        got = [nid for nid, _ in it]
     secs = time.perf_counter() - t
     live = set(range(SCAN_N)) - set(doomed.tolist())
     scan = dict(rows=len(got), live=len(live), visits=it.total_visits, seconds=secs,
                 us_per_visit=secs / max(it.total_visits, 1) * 1e6,
-                launches=edge_gather.launches - before)
+                launches=edge_gather.launches - before[0],
+                iter_launches=its.launches - before[1], refills=refills[0])
     out["full_scan"] = scan
     say(f"  stream: full scan of {SCAN_N} int8 rows, {len(doomed)} deleted: {len(got)} rows "
         f"({len(set(got))} distinct) in {secs:.2f}s, {scan['visits']} visits, "
-        f"{scan['us_per_visit']:.1f} us a visit, edge_gather launches {scan['launches']}")
+        f"{scan['us_per_visit']:.1f} us a visit, {scan['refills']} refills, iter_step "
+        f"launches {scan['iter_launches']}, edge_gather launches {scan['launches']}")
     if len(got) != len(set(got)) or set(got) != live:
         fail("stream: the full scan did not yield every live row exactly once")
+    if scan["iter_launches"] != scan["refills"] or scan["launches"]:
+        fail("stream: the full scan did not launch iter_step once a refill, and no "
+             "edge_gather")
     if not 0 < scan["visits"] <= small.count:
         fail(f"stream: the full scan took {scan['visits']} visits over {small.count} rows")
     check_deadline(phase)
@@ -3279,11 +3721,12 @@ def main(argv=None) -> int:
 
     from pgvectorscale_tpu_torch.config import StorageLayout
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
-    from pgvectorscale_tpu_torch.ops import (_build, beam_search, edge_gather, hamming_matrix,
-                                             prune_scan)
+    from pgvectorscale_tpu_torch.ops import (_build, beam_search, beam_search_full, edge_gather,
+                                             hamming_matrix, iter_step, prune_scan)
 
     modules = {"edge_gather": edge_gather, "hamming_matrix": hamming_matrix,
-               "beam_search": beam_search, "prune_scan": prune_scan}
+               "beam_search": beam_search, "prune_scan": prune_scan,
+               "beam_search_full": beam_search_full, "iter_step": iter_step}
 
     def reset_counts() -> None:
         for m in modules.values():
@@ -3449,9 +3892,10 @@ def main(argv=None) -> int:
             paths["plain"] = read_counts()  # the plain path ends here
             say(f"phase 10 plain: recall@10 {p_search[50]['recall']:.4f} at L=100; launches "
                 f"{paths['plain']}; peak device memory of the build {peaks['plain build']} B")
-            if any(paths["plain"][k] for k in ("edge_gather", "hamming_matrix", "beam_search")):
+            if any(paths["plain"][k] for k in HAMMING_KERNELS):
                 fail("the plain path launched a Hamming kernel")
-            require(paths["plain"], ("prune_scan",), "the plain path")
+            require(paths["plain"], FULL_BUILD_KERNELS, "the plain path")
+            plain_loops_agreement = phase_plain_loops_agreement(p_index, vectors, queries)
             gather_dot = time_gather_dot(p_index)
             del p_index
             torch.cuda.empty_cache()
@@ -3544,8 +3988,10 @@ def main(argv=None) -> int:
                 "kernel_bounds": {k: timing[k]["bound_how"] for k in KERNELS},
                 "edge_gather_by_q": timing["edge_gather"]["by_q"],
                 "beam_search_build_wave": timing["beam_search"]["build_wave"],
-                "chain_ms": {k: timing[k]["chain_ms"] for k in BUILD_KERNELS},
-                "loops_agreement": loops,
+                "chain_ms": {k: timing[k]["chain_ms"] for k in BUILD_KERNELS
+                             + ("beam_search_full", "iter_step")},
+                "beam_search_full_build_wave": timing["beam_search_full"]["build_wave"],
+                "loops_agreement": loops, "plain_loops_agreement": plain_loops_agreement,
                 "hamming_matrix_yardsticks_ms": timing["hamming_matrix"]["yardsticks_ms"],
                 "peak_memory_bytes": peaks,
                 "build_s": build_times, "search": {str(k): v for k, v in search.items()},
@@ -3590,7 +4036,9 @@ def main(argv=None) -> int:
     replaces = {"edge_gather": "pgvectorscale_tpu/ops/pallas_hamming.py:183",
                 "hamming_matrix": "pgvectorscale_tpu/ops/pallas_hamming.py:52",
                 "beam_search": "pgvectorscale_tpu/graph/search.py:580",
-                "prune_scan": "pgvectorscale_tpu/graph/prune.py:157"}
+                "prune_scan": "pgvectorscale_tpu/graph/prune.py:157",
+                "beam_search_full": "pgvectorscale_tpu/graph/search.py:580",
+                "iter_step": "pgvectorscale_tpu/graph/iterate.py:279"}
     kernels = {"kernels": [{
         "name": k,
         "route": "cuda",

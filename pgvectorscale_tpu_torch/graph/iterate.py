@@ -18,17 +18,21 @@ slot) or ``visit_budget`` nodes were expanded, then emits the window in
 ascending order.  ``first_unseen`` and ``reseed`` restart a starved
 frontier from the lowest-id unexpanded live row, so a full scan ends.
 
-The JAX package runs the expansion as a device ``while_loop``.  Here the
-loop condition is computed on the device before every step and masks
-every write of the step, so a step taken after the loop would have
-stopped leaves the state as it was; the host reads the condition once per
-block of ``STEP_BLOCK`` steps.  The results equal the while loop's.
-Neighbours are scored on the codes by the edge-gather kernel with one
-frontier node (``sel`` = [[node]]), which computes the JAX package's
-``hamming_gather`` of that node's adjacency row; full-precision scoring
-(plain storage, "exact" builds) goes through ``_candidate_distances``.
-Every sort is stable, as ``lax.sort``, ``lax.top_k`` and ``jnp.argsort``
-order ties.
+The JAX package runs the expansion as a device ``while_loop``; so does the
+port on the card, as one kernel launch a refill (``iter_step_kernel``:
+``ops.iter_step.launch`` of ``csrc/iter_step.cu``), which ``iter_step``
+dispatches a CUDA state to.
+``iter_step_plain`` is the loop from the host, the CPU's path and the
+kernel's reference: the loop condition is computed on the device before
+every step and masks every write of the step, so a step taken after the
+loop would have stopped leaves the state as it was; the host reads the
+condition once per block of ``STEP_BLOCK`` steps.  The results equal the
+while loop's.  Neighbours are scored on the codes by the edge-gather
+kernel with one frontier node (``sel`` = [[node]]), which computes the JAX
+package's ``hamming_gather`` of that node's adjacency row; full-precision
+scoring (plain storage, "exact" builds) goes through
+``_candidate_distances``.  Every sort is stable, as ``lax.sort``,
+``lax.top_k`` and ``jnp.argsort`` order ties.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import DistanceType
+from ..ops import _build
+from ..ops import iter_step as iter_step_op
 from ..ops.edge_gather import hamming_edge_gather
 from ..store import INVALID_ID, GraphArrays
 from .search import _candidate_distances
@@ -148,18 +154,59 @@ def iter_step(
     distance_type: DistanceType,
     use_codes: bool,
     step_block: int = STEP_BLOCK,
+    shared_limit: int = _build.MAX_SHARED_BYTES,
 ) -> tuple[IterState, torch.Tensor, torch.Tensor]:
-    """Advance the traversal and emit the next ``emit_n`` results:
-    (state, emit_ids i32[emit_n], emit_dists f32[emit_n]), ascending by
-    traversal distance, INVALID_ID padded.  Deleted rows are emitted (the
-    caller filters them).  ``state`` is not written."""
-    dev = arrays.device
-    f = state.beam_ids.shape[0]
-    cap = arrays.capacity
-    r = arrays.max_degree
+    """Advance the traversal and emit the next ``emit_n`` results
+    (arguments and result as ``iter_step_plain``'s): on the card one
+    launch of the iterator kernel (``iter_step_kernel``, which alone reads
+    ``shared_limit``), on the CPU ``iter_step_plain`` (which alone reads
+    ``step_block``)."""
+    device = state.beam_ids.device
+    if not use_codes:
+        query_vec = query_vec.contiguous()
+    iter_step_op.check(state, arrays, query_vec, query_code, emit_n, visit_budget, use_codes)
+    kw = dict(emit_n=emit_n, visit_budget=visit_budget, distance_type=distance_type,
+              use_codes=use_codes)
+    if device.type == "cpu":
+        return iter_step_plain(state, arrays, query_vec, query_code, step_block=step_block, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"no iterator kernel for device {device}")
+    return iter_step_kernel(state, arrays, query_vec, query_code, shared_limit=shared_limit,
+                            **kw)
 
-    # Window seed: the best emit_n unemitted visited rows (lax.top_k of
-    # the negated distances == the head of a stable ascending sort).
+
+def iter_step_kernel(
+    state: IterState,
+    arrays: GraphArrays,
+    query_vec: torch.Tensor,  # f32[Dt], contiguous
+    query_code: torch.Tensor,  # i32[W]
+    *,
+    emit_n: int,
+    visit_budget: int,
+    distance_type: DistanceType,
+    use_codes: bool,
+    shared_limit: int = _build.MAX_SHARED_BYTES,
+    lib=None,
+    device_args=None,
+) -> tuple[IterState, torch.Tensor, torch.Tensor]:
+    """One refill through the iterator kernel on checked inputs: the window
+    seed, one launch (``ops.iter_step.launch``, whose ``shared_limit``,
+    ``lib`` and ``device_args`` these are), the emitted rows."""
+    win_d, win_ids = window_seed(state, emit_n)
+    new, ids, d, _ = iter_step_op.launch(
+        state, arrays, query_vec, query_code, win_ids, win_d, visit_budget=visit_budget,
+        distance_type=distance_type, use_codes=use_codes, shared_limit=shared_limit, lib=lib,
+        device_args=device_args)
+    return new._replace(emitted=mark_emitted(state.emitted, ids)), ids, d
+
+
+def window_seed(state: IterState, emit_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The refill's window seed: the best ``emit_n`` unemitted visited rows,
+    (distances f32[emit_n] ascending, ids i32[emit_n]), INVALID_ID / +inf
+    padded (``lax.top_k`` of the negated distances == the head of a stable
+    ascending sort)."""
+    dev = state.visited.device
+    cap = state.visited.shape[0]
     pend = torch.where(state.visited & ~state.emitted, state.vdist, INF)
     win_d, win_ids = torch.sort(pend, stable=True)
     k = min(emit_n, cap)
@@ -169,6 +216,38 @@ def iter_step(
         win_d = torch.cat([win_d, torch.full((emit_n - k,), INF, device=dev)])
         win_ids = torch.cat([win_ids, torch.full((emit_n - k,), INVALID_ID,
                                                  dtype=torch.int32, device=dev)])
+    return win_d, win_ids
+
+
+def mark_emitted(emitted: torch.Tensor, win_ids: torch.Tensor) -> torch.Tensor:
+    """``emitted`` with every valid window id set (a new tensor; invalid
+    slots write a spare row)."""
+    cap = emitted.shape[0]
+    hit = torch.zeros((cap + 1,), dtype=torch.bool, device=emitted.device)
+    hit[torch.where(win_ids != INVALID_ID, win_ids, cap).long()] = True
+    return emitted | hit[:cap]
+
+
+def iter_step_plain(
+    state: IterState,
+    arrays: GraphArrays,
+    query_vec: torch.Tensor,  # f32[Dt]
+    query_code: torch.Tensor,  # i32[W]
+    *,
+    emit_n: int,
+    visit_budget: int,
+    distance_type: DistanceType,
+    use_codes: bool,
+    step_block: int = STEP_BLOCK,
+) -> tuple[IterState, torch.Tensor, torch.Tensor]:
+    """Advance the traversal and emit the next ``emit_n`` results:
+    (state, emit_ids i32[emit_n], emit_dists f32[emit_n]), ascending by
+    traversal distance, INVALID_ID padded.  Deleted rows are emitted (the
+    caller filters them).  ``state`` is not written."""
+    dev = arrays.device
+    f = state.beam_ids.shape[0]
+    r = arrays.max_degree
+    win_d, win_ids = window_seed(state, emit_n)
 
     visited, vdist = state.visited.clone(), state.vdist.clone()
     beam_ids, beam_dists = state.beam_ids, state.beam_dists
@@ -227,11 +306,8 @@ def iter_step(
             beam_dists = all_d[:f]
             beam_ids = torch.cat([beam_ids, cand_ids])[order[:f]]
 
-    # Emitted rows: every valid window id (invalid slots write a spare row).
-    hit = torch.zeros((cap + 1,), dtype=torch.bool, device=dev)
-    hit[torch.where(win_ids != INVALID_ID, win_ids, cap).long()] = True
     new_state = IterState(
-        visited=visited, emitted=state.emitted | hit[:cap], vdist=vdist,
+        visited=visited, emitted=mark_emitted(state.emitted, win_ids), vdist=vdist,
         beam_ids=beam_ids, beam_dists=beam_dists, n_visits=nv, n_comps=nc,
     )
     return new_state, win_ids, win_d

@@ -18,12 +18,12 @@ in the JAX package:
   candidates seen anywhere in the search (the "scored" rescore window),
   merged by the beam's network without visited flags.
 
-On the card, SBQ traversal runs the whole loop in one kernel launch
-(``ops.beam_search``, one block a query: every piece of the loop's state
-is a query's own).  ``beam_search_plain`` is the loop as a Python loop
-over iterations with one host read per iteration (the termination test),
-everything inside an iteration batched tensor work: the CPU's path, the
-kernel's reference, and full-precision traversal's path on the card.
+On the card the whole loop is one kernel launch, one block a query
+(every piece of the loop's state is a query's own): ``ops.beam_search``
+for SBQ traversal, ``ops.beam_search_full`` for full-precision traversal.
+``beam_search_plain`` is the loop as a Python loop over iterations with
+one host read per iteration (the termination test), everything inside an
+iteration batched tensor work: the CPU's path and the kernels' reference.
 Ties follow the JAX package: ``lax.top_k`` and ``lax.sort`` become stable
 ``torch.sort``, and the bitonic network is the same network, so equal
 inputs give equal beams.
@@ -47,6 +47,7 @@ from ..config import DistanceType
 from ..distance import row_distances
 from ..labels import overlaps
 from ..ops.beam_search import beam_search_codes
+from ..ops.beam_search_full import beam_search_full
 from ..ops.edge_gather import hamming_edge_gather
 from ..ops.hamming import hamming_gather
 from ..store import INVALID_ID, GraphArrays, lookup_label_starts
@@ -205,20 +206,22 @@ def beam_search(
 ) -> SearchResult:
     """Batched greedy beam search (arguments and result as
     ``beam_search_plain``).  SBQ traversal (``use_codes``) goes to
-    ``ops.beam_search.beam_search_codes``: on the card one kernel launch
-    runs the whole loop, on the CPU it is ``beam_search_plain``.
-    Full-precision traversal runs ``beam_search_plain`` on either device."""
+    ``ops.beam_search.beam_search_codes``, full-precision traversal to
+    ``ops.beam_search_full.beam_search_full``: on the card one kernel
+    launch runs the whole loop, on the CPU each is ``beam_search_plain``."""
     if use_codes:
         return beam_search_codes(
             arrays, query_codes, start_ids, query_labels,
             search_list_size=search_list_size, max_iters=max_iters,
             expand_factor=expand_factor, track_hist=track_hist, window_n=window_n,
         )
-    return beam_search_plain(
-        arrays, query_codes, start_ids, search_list_size=search_list_size,
-        max_iters=max_iters, expand_factor=expand_factor, track_hist=track_hist,
-        query_vecs=query_vecs, use_codes=False, distance_type=distance_type,
-        window_n=window_n, query_labels=query_labels,
+    if query_vecs is None:
+        raise ValueError("full-precision traversal needs query_vecs")
+    return beam_search_full(
+        arrays, query_vecs.contiguous(), start_ids, query_labels,
+        search_list_size=search_list_size, max_iters=max_iters,
+        expand_factor=expand_factor, track_hist=track_hist, window_n=window_n,
+        distance_type=distance_type,
     )
 
 

@@ -9,7 +9,12 @@ It builds the same seeded 100k x 768 "cohere" SBQ index as
 ``chip_smoke.py`` twice: once without the profiler, timing every wave,
 and once profiling wave ``WAVE`` (the build is deterministic, so both
 builds do the same work).  It then profiles one 1,024-query search at
-rescore 50 and at rescore 300.  For each it prints: the wall
+rescore 50 and at rescore 300, and one refill of the streaming iterator
+on that index (emit_n 128, the iterator's budget of 512 visits, from the
+state after a first refill).  Then the full-precision paths: wave
+``WAVE`` of a build with build_distance "exact" (built twice the same
+way) and a plain-storage build with one 1,024-query search at L=100.
+For each it prints: the wall
 milliseconds, the summed device time of all kernels, the device's busy
 share (kernels run on one stream, so the sum does not double count), the
 number of kernel launches, and the kernels that take the most device
@@ -31,6 +36,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, QueryParams
+from pgvectorscale_tpu_torch.config import StorageLayout
 from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
 
 N = 100_000  # rows, as in chip_smoke.py
@@ -82,6 +88,50 @@ def _build(vectors: np.ndarray, config: IndexConfig, profile_wave: int = 0):
     return index, walls, state["prof"]
 
 
+def _profile_call(fn, label: str) -> None:
+    """``fn()`` three times unprofiled (the best wall) and once under the
+    profiler; the summary under ``label`` (a callable of the last result
+    gives the label's tail)."""
+    plain = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    _summary(prof, wall, min(plain), label(out) if callable(label) else label)
+
+
+def _profile_refill(index) -> None:
+    """One refill of the streaming iterator on ``index`` (its first
+    query's stream, after a first refill)."""
+    from pgvectorscale_tpu_torch.distance import preprocess_query
+    from pgvectorscale_tpu_torch.graph import iterate
+    from pgvectorscale_tpu_torch.graph.search import get_start_ids
+    from pgvectorscale_tpu_torch.ops import sbq
+
+    cfg = index.config
+    kw = dict(distance_type=cfg.distance_type, use_codes=cfg.uses_sbq)
+    q = torch.as_tensor(index.arrays.vectors[:1].float())
+    qv = preprocess_query(q, cfg.distance_type)[0, : cfg.dims_to_index]
+    qc = (sbq.encode(qv[None], index.sbq_stats, cfg.bits_per_dimension)[0] if cfg.uses_sbq
+          else torch.zeros((0,), dtype=torch.int32, device=qv.device))
+    state = iterate.init_state(index.arrays, qv, qc, get_start_ids(index.arrays, 1)[0],
+                               frontier=256, **kw)
+    state, _, _ = iterate.iter_step(state, index.arrays, qv, qc, emit_n=128, visit_budget=512,
+                                    **kw)
+    before = int(state.n_visits)
+    _profile_call(
+        lambda: iterate.iter_step(state, index.arrays, qv, qc, emit_n=128, visit_budget=512,
+                                  **kw),
+        lambda out: f"stream refill emit_n=128 ({int(out[0].n_visits) - before} visits)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA device")
@@ -104,20 +154,25 @@ def main() -> None:
     qdev = torch.as_tensor(queries).cuda()
     for rescore in (50, 300):
         params = QueryParams(search_list_size=100, rescore=rescore)
-        plain = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            index.search(qdev, 10, params)
-            torch.cuda.synchronize()
-            plain.append(time.perf_counter() - t)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            index.search(qdev, 10, params)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        _summary(prof, wall, min(plain), f"search Q={NQ} rescore {rescore} "
-                 f"({index.last_search.iters} beam iterations)")
+        _profile_call(lambda: index.search(qdev, 10, params),
+                      lambda _: f"search Q={NQ} rescore {rescore} "
+                                f"({index.last_search.iters} beam iterations)")
+    _profile_refill(index)
+    del index
+
+    exact = IndexConfig(num_dimensions=vectors.shape[1], build_distance="exact")
+    _, exact_walls, _ = _build(vectors, exact)
+    _, walls, prof = _build(vectors, exact, profile_wave=WAVE)
+    _summary(prof, walls[WAVE - 1], exact_walls[WAVE - 1], f"\"exact\" build wave {WAVE}")
+
+    plain_cfg = IndexConfig(num_dimensions=vectors.shape[1], storage_layout=StorageLayout.PLAIN)
+    t = time.perf_counter()
+    p_index, _, _ = _build(vectors, plain_cfg)
+    print(f"plain build: {time.perf_counter() - t:.2f} s for {N} rows, unprofiled")
+    params = QueryParams(search_list_size=100, rescore=50)
+    _profile_call(lambda: p_index.search(qdev, 10, params),
+                  lambda _: f"plain search Q={NQ} L=100 ({p_index.last_search.iters} beam "
+                            f"iterations)")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-// The CUDA features csrc/beam_search.cu and csrc/prune_scan.cu use,
-// emulated on the CPU so that their sources run under g++
-// (tests/test_torch_beam_emulated.py, tests/test_torch_prune_emulated.py).  Every
+// The CUDA features the loop kernels of csrc/ (beam_search.cu,
+// prune_scan.cu, beam_search_full.cu, iter_step.cu) use, emulated on the
+// CPU so that their sources run under g++ (tests/test_torch_*_emulated.py).  Every
 // CUDA thread of a block is a fiber (ucontext) on the calling thread, run
 // in turn until it reaches a barrier: __syncthreads waits for the block,
 // __syncwarp and the warp-wide steps (shuffles, votes, which exchange values
@@ -60,8 +60,14 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int threads,
 
 struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+struct float4 { float x, y, z, w; };
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+// Round-to-nearest f32 products, never fused into a later add (g++ for
+// x86-64 fuses nothing without -mfma).
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 struct EmuIndex { int x; };
 inline EmuIndex threadIdx, blockIdx;
@@ -82,6 +88,7 @@ struct EmuBlock {
   };
   std::vector<Fiber> fibers;
   std::vector<int> arrived;
+  std::vector<int> votes;  // __syncthreads_or's predicates
   ucontext_t scheduler;
   uint64_t lanes[8][32];
   unsigned char* smem;
@@ -107,6 +114,14 @@ inline void emu_wait(int b, int need) {
 
 inline void __syncthreads() { emu_wait(0, static_cast<int>(emu_block->fibers.size())); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_wait(1 + (threadIdx.x >> 5), 32); }
+inline int __syncthreads_or(int pred) {
+  emu_block->votes[threadIdx.x] = pred != 0;
+  __syncthreads();
+  int any = 0;
+  for (int v : emu_block->votes) any |= v;
+  __syncthreads();
+  return any;
+}
 
 // Every lane puts v in; lane `lane` of the result is the value lane src(lane) put.
 template <class T, class Src>
@@ -219,6 +234,7 @@ void emu_launch(Kernel kernel, const P& p, int blocks, int threads, size_t smem)
   EmuBlock blk;
   blk.fibers.resize(threads);
   blk.arrived.assign(1 + threads / 32, 0);
+  blk.votes.assign(threads, 0);
   blk.smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(buffer.data()) + 15) & ~uintptr_t(15));
   blk.body = [](const void* params) { run(*static_cast<const P*>(params)); };

@@ -18,7 +18,8 @@ on the L2 one).  The port's counterparts of
 ``tests/test_streaming.py::test_iterator_no_duplicates_full_scan`` and
 ``tests/test_aux.py::test_streaming_stats_populated`` hold, and the
 label-filtered restart fallback streams JAX's ids.  The block-masked
-expansion (``step_block``) equals a one-step-at-a-time run.
+expansion (``step_block``) equals a one-step-at-a-time run.  An index of
+num_neighbors 200 (260 adjacency slots) streams JAX's ids too.
 """
 
 import jax.numpy as jnp
@@ -162,6 +163,35 @@ def test_search_iterator_stream_matches_jax(built, kind):
     np.testing.assert_allclose(d, jd, rtol=0, atol=1e-5)
     assert pit.total_visits == jit.total_visits
     assert pit.stats_count == jit.stats_count
+
+
+@pytest.mark.parametrize("kind", ("plain", "f32"))
+def test_search_iter_wide_adjacency_matches_jax(kind):
+    """An index of num_neighbors 200 (adjacency rows of 260 slots, wider
+    than the iterator kernel's block): the first 300 results of a stream
+    at L=8, rescore 10 are JAX's ids, distances within 1e-5, in the same
+    visits.  600 rows 16 wide: integer rows under L2 in plain storage,
+    random rows on SBQ codes."""
+    rng = np.random.default_rng(5)
+    if kind == "plain":
+        rows = rng.integers(-3, 4, (600, 16)).astype(np.float32)
+        cfg = JaxConfig(num_dimensions=16, distance_type=JaxDistance.L2, num_neighbors=200,
+                        search_list_size=200, storage_layout=JaxLayout.PLAIN)
+    else:
+        rows = rng.standard_normal((600, 16)).astype(np.float32)
+        cfg = JaxConfig(num_dimensions=16, num_neighbors=200, search_list_size=200)
+    jidx = JaxIndex.build(rows, cfg)
+    pidx = _carry(jidx)
+    assert pidx.arrays.adjacency.shape[1] == 260
+    query = rows[3] + np.float32(0.25)
+    jit = jidx.search_iter(query, JaxParams(search_list_size=8, rescore=10))
+    pit = pidx.search_iter(query, QueryParams(search_list_size=8, rescore=10), device="cpu")
+    jids, jd = jit.next_batch(300)
+    ids, d = pit.next_batch(300)
+    assert len(ids) == 300
+    np.testing.assert_array_equal(ids, jids)
+    np.testing.assert_allclose(d, jd, rtol=0, atol=1e-5)
+    assert pit.total_visits == jit.total_visits
 
 
 def test_iterator_no_duplicates_full_scan():

@@ -7,7 +7,9 @@ JAX is not installed (``--noconftest`` skips the JAX setup in conftest):
 
 Tests marked ``cuda`` decide inside a fixture whether a card is present
 and skip without one.  On the card the kernel must equal its plain
-version exactly (integer popcounts: tolerance none).
+version exactly (integer popcounts: tolerance none); the full-precision
+kernels equal theirs exactly on integer rows under L2 and inner product
+and within 1e-5 relative elsewhere (``ops.beam_search_full.results_close``).
 """
 
 import os
@@ -16,7 +18,8 @@ import stat
 import pytest
 import torch
 
-from pgvectorscale_tpu_torch.ops import _build, beam_search, edge_gather, hamming_matrix, prune_scan
+from pgvectorscale_tpu_torch.ops import (_build, beam_search, beam_search_full, edge_gather,
+                                         hamming_matrix, iter_step, prune_scan)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -259,8 +262,9 @@ def test_full_precision_build_and_add_on_card_match_cpu(cuda_device, mode, monke
     integer in any summation order) with ``refine_passes=1``, then an add
     of 1,000 rows: the card
     gives the CPU's graph exactly, launches no Hamming kernel in the build
-    or the add (full-precision traversal) but the prune kernel, and the
-    "exact" index's search launches the beam-search kernel.  The
+    or the add (full-precision traversal, the full-precision beam-search
+    kernel) but the prune kernel, and the "exact" index's search launches
+    the beam-search kernel, the plain index's the full-precision one.  The
     brute-force threshold is lowered to 256 rows so the build and the add
     reach full-precision beam waves."""
     import numpy as np
@@ -281,7 +285,7 @@ def test_full_precision_build_and_add_on_card_match_cpu(cuda_device, mode, monke
     graphs = []
     for dev in (cuda_device, torch.device("cpu")):
         before = (edge_gather.launches, hamming_matrix.launches, beam_search.launches)
-        pruned = prune_scan.launches
+        pruned, full = prune_scan.launches, beam_search_full.launches
         index = DiskannIndex.build(base[:3000], config, device=dev, refine_passes=1)
         index.add(base[3000:])
         if dev.type == "cuda":
@@ -289,12 +293,16 @@ def test_full_precision_build_and_add_on_card_match_cpu(cuda_device, mode, monke
             assert (edge_gather.launches, hamming_matrix.launches,
                     beam_search.launches) == before
             assert prune_scan.launches > pruned
+            assert beam_search_full.launches > full
             n = index.count
             assert bool(reachable_on_device(index.arrays)[:n].all())
             ids, dists = index.search(base[:64], 10, QueryParams(search_list_size=32,
                                                                  rescore=50))
             assert ids[:, 0].tolist() == list(range(64))
             assert (beam_search.launches > before[2]) == (mode == "exact")
+            full = beam_search_full.launches
+            index.search(base[:64], 10, QueryParams(search_list_size=32, rescore=50))
+            assert (beam_search_full.launches > full) == (mode == "plain")
         graphs.append(index.arrays.adjacency.cpu())
     assert torch.equal(graphs[0], graphs[1])
 
@@ -399,9 +407,9 @@ def test_int8_rescore_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_iter_step_on_card_matches_cpu(cuda_device):
     """Three refills of ``iter_step`` on an int8 SBQ index: the card
-    (edge_gather, one launch a visit) emits the CPU's ids and distances
-    and reaches the CPU's state exactly (Hamming distances are
-    integers)."""
+    (the iterator kernel, one launch a refill, no edge_gather) emits the
+    CPU's ids and distances and reaches the CPU's state exactly (Hamming
+    distances are integers)."""
     from pgvectorscale_tpu_torch.distance import preprocess_query
     from pgvectorscale_tpu_torch.graph import iterate
     from pgvectorscale_tpu_torch.graph.search import get_start_ids
@@ -419,7 +427,7 @@ def test_iter_step_on_card_matches_cpu(cuda_device):
             qc = sbq.encode(qv[None], index.sbq_stats, cfg.bits_per_dimension)[0]
             state = iterate.init_state(index.arrays, qv, qc, get_start_ids(index.arrays, 1)[0],
                                        frontier=256, **kw)
-            before = edge_gather.launches
+            before = edge_gather.launches, iter_step.launches
             emitted = []
             for emit_n in (128, 256, 512):
                 state, ids, d = iterate.iter_step(state, index.arrays, qv, qc, emit_n=emit_n,
@@ -427,7 +435,8 @@ def test_iter_step_on_card_matches_cpu(cuda_device):
                 emitted += [ids.cpu(), d.cpu()]
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-                assert edge_gather.launches - before >= int(state.n_visits) > 0
+                assert (edge_gather.launches, iter_step.launches) == (before[0], before[1] + 3)
+                assert int(state.n_visits) > 0
             outs.append(emitted + [t.cpu() for t in state])
         for a, b in zip(*outs):
             assert torch.equal(a, b)
@@ -435,8 +444,9 @@ def test_iter_step_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_block_masked_iter_step_equals_one_step_at_a_time(cuda_device):
-    """On the card, refills run in blocks of 16 masked steps (the loop
-    condition read once a block) equal refills read after every step."""
+    """On the card, the plain refill's blocks of 16 masked steps (the loop
+    condition read once a block) equal refills read after every step, and
+    the iterator kernel's refills."""
     from pgvectorscale_tpu_torch.distance import preprocess_query
     from pgvectorscale_tpu_torch.graph import iterate
     from pgvectorscale_tpu_torch.graph.search import get_start_ids
@@ -448,17 +458,23 @@ def test_block_masked_iter_step_equals_one_step_at_a_time(cuda_device):
     qv = preprocess_query(torch.from_numpy(queries[:1]).to(cuda_device), cfg.distance_type)[0]
     qc = sbq.encode(qv[None], card.sbq_stats, cfg.bits_per_dimension)[0]
     outs = []
-    for block in (16, 1):
+    for block in (16, 1, None):
         state = iterate.init_state(card.arrays, qv, qc, get_start_ids(card.arrays, 1)[0],
                                    frontier=256, **kw)
         emitted = []
         for emit_n, budget in ((128, 512), (128, 37), (256, 1024)):
-            state, ids, d = iterate.iter_step(state, card.arrays, qv, qc, emit_n=emit_n,
-                                              visit_budget=budget, step_block=block, **kw)
+            if block is None:  # the kernel
+                state, ids, d = iterate.iter_step(state, card.arrays, qv, qc, emit_n=emit_n,
+                                                  visit_budget=budget, **kw)
+            else:
+                state, ids, d = iterate.iter_step_plain(state, card.arrays, qv, qc,
+                                                        emit_n=emit_n, visit_budget=budget,
+                                                        step_block=block, **kw)
             emitted += [ids, d]
         outs.append(emitted + list(state))
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
 
 
 def test_beam_search_wrapper_rejects_bad_inputs():
@@ -553,3 +569,134 @@ def test_prune_scan_kernel_matches_plain_on_card(cuda_device, case):
     card = robust_prune(*inputs, **kw)
     cpu = robust_prune(*[None if t is None else t.cpu() for t in inputs], **kw)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+
+
+def test_beam_search_full_wrapper_takes_plain_on_cpu_and_rejects_bad_inputs():
+    from pgvectorscale_tpu_torch.config import DistanceType
+
+    arrays, qv, starts, ql = beam_search_full.check_inputs(4, 64, 8, 5, s=2, lm=1, lq=1)
+    kw = dict(search_list_size=8, max_iters=8, expand_factor=2,
+              distance_type=DistanceType.L2)
+    before = beam_search_full.launches
+    res = beam_search_full.beam_search_full(arrays, qv, starts, ql, **kw)  # accepted
+    want = beam_search_full.beam_search_full_plain(arrays, qv, starts, ql, **kw)
+    assert beam_search_full.results_equal(res, want) == []
+    assert beam_search_full.launches == before  # plain on the CPU
+    f = beam_search_full.beam_search_full
+    with pytest.raises(TypeError):  # rows of another type
+        f(arrays._replace(vectors=arrays.vectors.double()), qv, starts, ql, **kw)
+    with pytest.raises(TypeError):
+        f(arrays, qv.double(), starts, ql, **kw)
+    with pytest.raises(TypeError):
+        f(arrays._replace(adjacency=arrays.adjacency.long()), qv, starts, ql, **kw)
+    with pytest.raises(ValueError):  # a prefix wider than the rows
+        f(arrays, torch.zeros((4, 9)), starts, ql, **kw)
+    with pytest.raises(ValueError):  # int8 rows without their scales
+        f(arrays._replace(vectors=arrays.vectors.to(torch.int8), vec_scales=None), qv, starts,
+          ql, **kw)
+    with pytest.raises(ValueError):  # query counts differ
+        f(arrays, qv[:3], starts, ql, **kw)
+    with pytest.raises(ValueError):
+        f(arrays, qv.t(), starts, ql, **kw)
+    with pytest.raises(ValueError):  # E > L
+        f(arrays, qv, starts, ql, **dict(kw, search_list_size=1))
+    with pytest.raises(ValueError):
+        meta = arrays._replace(vectors=arrays.vectors.to("meta"),
+                               adjacency=arrays.adjacency.to("meta"),
+                               node_labels=arrays.node_labels.to("meta"))
+        f(meta, qv.to("meta"), starts.to("meta"), ql.to("meta"), **kw)
+
+
+def test_iter_step_wrapper_takes_plain_on_cpu_and_rejects_bad_inputs():
+    from pgvectorscale_tpu_torch.config import DistanceType
+    from pgvectorscale_tpu_torch.graph import iterate
+    from pgvectorscale_tpu_torch.graph.iterate import IterState
+
+    arrays, qv, qc, starts = iter_step.check_inputs(256, 9, use_codes=True, w=4, s=2)
+    kw = dict(distance_type=DistanceType.COSINE, use_codes=True)
+    state = iterate.init_state(arrays, qv, qc, starts, frontier=64, **kw)
+    before = iter_step.launches
+    got = iterate.iter_step(state, arrays, qv, qc, emit_n=10, visit_budget=40, **kw)
+    want = iterate.iter_step_plain(state, arrays, qv, qc, emit_n=10, visit_budget=40, **kw)
+    assert iter_step.refill_differs(got, want, exact=True) == []
+    assert iter_step.launches == before  # plain on the CPU
+    f = iterate.iter_step
+    with pytest.raises(ValueError):  # an empty window
+        f(state, arrays, qv, qc, emit_n=0, visit_budget=40, **kw)
+    with pytest.raises(ValueError):  # no kernel for the device
+        meta = arrays._replace(adjacency=arrays.adjacency.to("meta"),
+                               codes=arrays.codes.to("meta"))
+        f(IterState(*(t.to("meta") for t in state)), meta, qv.to("meta"), qc.to("meta"),
+          emit_n=10, visit_budget=40, **kw)
+    with pytest.raises(TypeError):
+        f(state._replace(beam_ids=state.beam_ids.long()), arrays, qv, qc, emit_n=10,
+          visit_budget=40, **kw)
+    with pytest.raises(ValueError):  # the query code's words
+        f(state, arrays, qv, qc[:2], emit_n=10, visit_budget=40, **kw)
+    with pytest.raises(ValueError):  # visited of another table
+        f(state._replace(visited=state.visited[:100]), arrays, qv, qc, emit_n=10,
+          visit_budget=40, **kw)
+    full, fqv, fqc, fstarts = iter_step.check_inputs(256, 9, use_codes=False, d=8)
+    fkw = dict(distance_type=DistanceType.L2, use_codes=False)
+    fstate = iterate.init_state(full, fqv, fqc, fstarts, frontier=64, **fkw)
+    with pytest.raises(TypeError):
+        f(fstate, full, fqv.double(), fqc, emit_n=10, visit_budget=40, **fkw)
+    with pytest.raises(ValueError):  # a prefix wider than the rows
+        f(fstate, full, torch.zeros(9), fqc, emit_n=10, visit_budget=40, **fkw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs,search", beam_search_full.CHECK_CASES)
+def test_beam_search_full_kernel_matches_plain_on_card(cuda_device, inputs, search):
+    """On the card the full-precision kernel launches once and equals the
+    plain loop: bit for bit on integer rows under L2 and inner product (f32,
+    bf16), within 1e-5 relative (ids up to a near-tie) elsewhere."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    arrays, qv, starts, ql = beam_search_full.check_inputs(**inputs, device=cuda_device,
+                                                           generator=g)
+    plain_kw = {k: v for k, v in search.items() if k != "shared_limit"}
+    plain_kw.setdefault("track_hist", True)
+    plain_kw.setdefault("window_n", 0)
+    before = beam_search_full.launches
+    got = beam_search_full.beam_search_full(arrays, qv, starts, ql, **search)
+    assert beam_search_full.launches == before + 1
+    want = beam_search_full.beam_search_full_plain(arrays, qv, starts, ql, **plain_kw)
+    torch.cuda.synchronize()
+    if beam_search_full.exact_case(inputs, search):
+        assert beam_search_full.results_equal(got, want) == []
+    else:
+        assert beam_search_full.results_close(got, want) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(iter_step.CHECK_CASES)))
+def test_iter_step_kernel_matches_plain_on_card(cuda_device, case):
+    """On the card each refill is one launch of the iterator kernel and
+    equals the plain refill (every state field, ids and distances bit for
+    bit on the codes and integer rows under L2 and inner product; within
+    1e-5 relative elsewhere), through a starvation reseed."""
+    from pgvectorscale_tpu_torch.graph import iterate
+
+    inputs, traversal = (dict(c) for c in iter_step.CHECK_CASES[case])
+    g = torch.Generator(device=cuda_device).manual_seed(9 + case)
+    arrays, qv, qc, starts = iter_step.check_inputs(**inputs, device=cuda_device, generator=g)
+    kw = dict(distance_type=traversal["distance_type"], use_codes=inputs["use_codes"])
+    exact = iter_step.exact_case(inputs, traversal)
+    limit = traversal.get("shared_limit", _build.MAX_SHARED_BYTES)
+    state = iterate.init_state(arrays, qv, qc, starts, frontier=traversal["frontier"], **kw)
+    ours = plain = iter_step.previsit(state, traversal.get("previsit", 0), g)
+    refills = list(traversal["refills"])
+    for k, (emit_n, budget) in enumerate(refills + [refills[-1]]):
+        if k == len(refills):
+            nid = iterate.first_unseen(plain, arrays)
+            ours = iterate.reseed(ours, arrays, qv, qc, nid, **kw)
+            plain = iterate.reseed(plain, arrays, qv, qc, nid, **kw)
+        before = iter_step.launches
+        got = iterate.iter_step(ours, arrays, qv, qc, emit_n=emit_n, visit_budget=budget,
+                                shared_limit=limit, **kw)
+        assert iter_step.launches == before + 1
+        want = iterate.iter_step_plain(plain, arrays, qv, qc, emit_n=emit_n,
+                                       visit_budget=budget, **kw)
+        torch.cuda.synchronize()
+        assert iter_step.refill_differs(got, want, exact) == [], f"refill {k}"
+        ours, plain = got[0], want[0]
