@@ -49,7 +49,11 @@ Phases, each reported on a timestamped, flushed line:
    shape over 1M slots on the codes, bit-equal; f32 L2 and bf16 inner
    product on integer rows, bit-equal; int8 cosine, within 1e-5), each
    through its refills and a starvation reseed; the search, the build
-   wave and the stream's first refill timed beside their bounds.
+   wave and the stream's first refill timed beside their bounds (the
+   full-precision search's: the batch's distinct rows read once against
+   the FMAs of the distinct (query, row) pairs, with the rows each query
+   read, the distinct rows it scored and the per-query distinct byte
+   floor printed beside them).
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -106,8 +110,11 @@ Phases, each reported on a timestamped, flushed line:
    launches beam_search_full and prune_scan and no Hamming kernel.  Then,
    outside the path, the plain loops agreement (the search and one wave
    of 4,096 rows through the kernels and through their plain versions:
-   recall@10 within 0.002, the wave's graph invariants) and the device
-   time of the plain loop's gather-dot at a build and a search step.
+   recall@10 within 0.002, the wave's graph invariants), the index's
+   search as a shape of phase 2's beam_search_full check (its arguments
+   captured from ``DiskannIndex.search``; within 1e-5 of the plain loop,
+   timed as phase 2 times its shapes) and the device time of the plain
+   loop's gather-dot at a build and a search step.
 11. filtered: the JAX suite's filtered deployment (benchmarks/suite.py
    ``run_filtered``: 100 labels with popularity 1/rank, 1-2 a row, bf16
    vectors, 2 bits/dim) on the corpus, built exact-prune (R=50, L=100):
@@ -933,14 +940,12 @@ def matched_dist_err(pairs) -> float:
 def check_beam_search_full(cap_main: int, card: dict) -> dict:
     """The full-precision beam kernel against ``beam_search_full_plain`` on
     the card at every FULL_CASES shape, over random graphs with
-    INVALID_EDGE_SHARE of the slots empty: every output bit-equal on
-    integer rows under L2 and inner product (f32, bf16), else within 1e-5
-    relative with ids equal up to a near-tie (``results_close``).  The
-    timed shapes: the kernel (CUDA events behind the device sleep), the
-    plain loop (events around one call), one query alone (Q=1: the chain of
-    dependent iterations) and the bound from the search's own visits
-    (``ops.beam_search_full.bound_bytes``; operations: the scored pairs'
-    FMAs and, L2, subtractions)."""
+    INVALID_EDGE_SHARE of the slots empty (``check_full_shape``).  The
+    timed shapes (``time_beam_search_full``): the kernel (CUDA events
+    behind the device sleep), the plain loop (events around one call), one
+    query alone (Q=1: the chain of dependent iterations), the rows read
+    beside the distinct rows scored, and the bound from the search's own
+    visits."""
     import torch
 
     from pgvectorscale_tpu_torch.config import DistanceType
@@ -954,29 +959,11 @@ def check_beam_search_full(cap_main: int, card: dict) -> dict:
             search, distance_type=DistanceType[search["distance_type"]]))
         limit = search.pop("shared_limit", None)
         arrays, qv, starts, ql = bsf.check_inputs(**inputs, device="cuda", generator=g)
-        plain = bsf.beam_search_full_plain(arrays, qv, starts, ql, **search)
-        kw = {} if limit is None else dict(shared_limit=limit)
-        got = bsf.beam_search_full(arrays, qv, starts, ql, **search, **kw)
-        torch.cuda.synchronize()
-        exact = bsf.exact_case(inputs, search)
-        bad = bsf.results_equal(got, plain) if exact else bsf.results_close(got, plain)
-        err = matched_dist_err(
-            (getattr(got, i), getattr(got, d), getattr(plain, i), getattr(plain, d))
-            for i, d in (("beam_ids", "beam_dists"), ("hist_ids", "hist_dists"),
-                         ("window_ids", "window_dists")))
-        max_err = max(max_err, err)
-        say(f"  beam_search_full {name} Q={inputs['q']} D={inputs['d']} "
-            f"{inputs.get('dtype', torch.float32)} {search['distance_type'].name} "
-            f"L={search['search_list_size']} E={search['expand_factor']}"
-            f"{'' if limit is None else f' shared limit {limit}'}: {got.iters} iterations: "
-            f"{('equal' if exact else 'within 1e-5') if not bad else 'DIFFERENT in ' + ', '.join(bad)} "
-            f"(max abs err of the distances at equal ids {err}; result rows equal "
-            f"{float((got.beam_ids == plain.beam_ids).all(dim=1).float().mean()):.4f})")
-        if bad:
-            fail(f"beam_search_full differs from its plain version at {name}: {bad}")
+        max_err = max(max_err, check_full_shape(
+            name, arrays, qv, starts, ql, search, bsf.exact_case(inputs, search), limit))
         if name in ("search", "build wave"):
             timed[name] = time_beam_search_full(arrays, qv, starts, ql, search, card)
-        del arrays, qv, starts, ql, plain, got
+        del arrays, qv, starts, ql
     say(f"phase 2 kernel vs plain: beam_search_full agrees at all {len(FULL_CASES)} shapes")
     check_deadline("kernel vs plain")
     timing = dict(timed["search"])
@@ -985,7 +972,47 @@ def check_beam_search_full(cap_main: int, card: dict) -> dict:
     return timing
 
 
+def check_full_shape(name, arrays, qv, starts, ql, search: dict, exact: bool,
+                     limit=None) -> float:
+    """One shape of the full-precision beam kernel against its plain loop:
+    every output bit-equal when ``exact`` (integer rows under L2 and inner
+    product, f32 and bf16), else within 1e-5 relative with ids equal up to
+    a near-tie (``results_close``); fails otherwise.  Returns the largest
+    distance error at equal ids."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import beam_search_full as bsf
+
+    plain = bsf.beam_search_full_plain(arrays, qv, starts, ql, **search)
+    kw = {} if limit is None else dict(shared_limit=limit)
+    got = bsf.beam_search_full(arrays, qv, starts, ql, **search, **kw)
+    torch.cuda.synchronize()
+    bad = bsf.results_equal(got, plain) if exact else bsf.results_close(got, plain)
+    err = matched_dist_err(
+        (getattr(got, i), getattr(got, d), getattr(plain, i), getattr(plain, d))
+        for i, d in (("beam_ids", "beam_dists"), ("hist_ids", "hist_dists"),
+                     ("window_ids", "window_dists")))
+    say(f"  beam_search_full {name} Q={qv.shape[0]} D={qv.shape[1]} {arrays.vectors.dtype} "
+        f"{search['distance_type'].name} L={search['search_list_size']} "
+        f"E={search['expand_factor']}{'' if limit is None else f' shared limit {limit}'}: "
+        f"{got.iters} iterations: "
+        f"{('equal' if exact else 'within 1e-5') if not bad else 'DIFFERENT in ' + ', '.join(bad)} "
+        f"(max abs err of the distances at equal ids {err}; result rows equal "
+        f"{float((got.beam_ids == plain.beam_ids).all(dim=1).float().mean()):.4f})")
+    if bad:
+        fail(f"beam_search_full differs from its plain version at {name}: {bad}")
+    return err
+
+
 def time_beam_search_full(arrays, qv, starts, ql, search: dict, card: dict) -> dict:
+    """Times of one shape (kernel, one query alone, plain loop), the rows
+    each query read (the kernel's ``rows_read``) beside the survivors it
+    scored (``n_dist_comps``) and the distinct rows among them
+    (``distinct_scored_plain``), and the bound: the bytes of the batch's
+    distinct rows read once (``bound_bytes``) against the operations of the
+    distinct (query, row) pairs (a repeat needs no FMA: the memo holds its
+    distance), the larger; beside it the per-query distinct byte floor
+    (each query reading its own distinct rows once) and the chain."""
     import torch
 
     from pgvectorscale_tpu_torch.config import DistanceType
@@ -1001,33 +1028,80 @@ def time_beam_search_full(arrays, qv, starts, ql, search: dict, card: dict) -> d
     visited = torch.unique(res.hist_ids[res.hist_ids >= 0])
     nbrs = arrays.adjacency[visited.long()]
     scored = torch.unique(torch.cat([nbrs[nbrs >= 0], starts[starts >= 0]]))
-    out, _ = bsf.launch(arrays, qv, starts, ql, **kw)
+    rows_read = torch.zeros(qv.shape[0], dtype=torch.int32, device=qv.device)
+    out, _ = bsf.launch(arrays, qv, starts, ql, rows_read=rows_read, **kw)
+    _, distinct = bsf.distinct_scored_plain(arrays, qv, starts, ql, **kw)
     out_bytes = sum(t.numel() * t.element_size() for t in out.values()) + qv.shape[0] * 4
     (q, dt), (s, lq) = qv.shape, (starts.shape[1], ql.shape[1])
     r, lm = arrays.adjacency.shape[1], arrays.node_labels.shape[1]
     vecs = arrays.vectors
+    int8 = vecs.dtype == torch.int8
     nbytes = bsf.bound_bytes(q, dt, vecs.element_size(), r, s, lq, lm, out_bytes,
-                             int(visited.numel()), int(scored.numel()),
-                             int8=vecs.dtype == torch.int8)
-    pairs = int(res.n_dist_comps.sum())
+                             int(visited.numel()), int(scored.numel()), int8=int8)
+    pairs, read, n_distinct = (int(out["n_dist_comps"].sum()), int(rows_read.sum()),
+                               int(distinct.sum()))
     per_elem = 2 if kw["distance_type"] == DistanceType.L2 else 1
-    bound_ms, bound_by, how = bound(nbytes, f32_ops_ms(card, pairs * dt * per_elem))
+    bound_ms, bound_by, how = bound(nbytes, f32_ops_ms(card, n_distinct * dt * per_elem))
+    per_query_floor = bsf.bound_bytes(q, dt, vecs.element_size(), r, s, lq, lm, out_bytes,
+                                      int(visited.numel()), n_distinct, int8=int8)
+    per_query_ms = per_query_floor / HBM_BYTES_PER_S * 1e3
     chain_bound_ms = res.iters * 2 * HBM_READ_NS * 1e-6
     say(f"  beam_search_full timing at Q={q} D={dt} L={kw['search_list_size']} "
         f"E={kw['expand_factor']} hist={kw['track_hist']}: kernel {ms:.4f} ms ({res.iters} "
         f"iterations), one query alone {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {how}; {int(visited.numel())} distinct frontier rows, "
-        f"{int(scored.numel())} distinct scored rows, {pairs} scored pairs; the chain "
-        f"{chain_bound_ms:.4f} ms: {res.iters} iterations x 2 dependent reads at "
-        f"{HBM_READ_NS} ns)")
+        f"{int(scored.numel())} distinct scored rows of the batch, {pairs} scored survivors "
+        f"(n_dist_comps), {n_distinct} distinct (query, row) pairs, {read} rows read "
+        f"(rows_read; {read / q:.1f} a query against {n_distinct / q:.1f} distinct and "
+        f"{pairs / q:.1f} scored); the per-query distinct byte floor {per_query_ms:.4f} ms "
+        f"({per_query_floor} B); the chain {chain_bound_ms:.4f} ms: {res.iters} iterations x 2 "
+        f"dependent reads at {HBM_READ_NS} ns)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, bound_how=how, chain_ms=chain_ms,
                 chain_bound_ms=chain_bound_ms, iters=res.iters,
+                per_query_floor_ms=per_query_ms,
                 shape=dict(q=q, d=dt, r=r, cap=arrays.adjacency.shape[0],
                            dtype=str(vecs.dtype), distance=kw["distance_type"].name,
                            l=kw["search_list_size"], h=kw["max_iters"],
                            e=kw["expand_factor"], visited_rows=int(visited.numel()),
-                           scored_rows=int(scored.numel()), scored_pairs=pairs))
+                           scored_rows=int(scored.numel()), scored_pairs=pairs,
+                           distinct_pairs=n_distinct, rows_read=read))
+
+
+def phase_built_full_search(index, queries, card: dict) -> dict:
+    """Phase 10's plain-storage index at L=100, outside the path: the
+    arguments ``DiskannIndex.search`` gives the full-precision beam search
+    (captured), checked against the plain loop as a FULL_CASES shape
+    (float rows: within 1e-5) and timed (``time_beam_search_full``)."""
+    import torch
+
+    from pgvectorscale_tpu_torch import QueryParams
+    from pgvectorscale_tpu_torch.graph import search
+
+    real, calls = search.beam_search_full, []
+
+    def capture(arrays, qv, starts, ql=None, **kw):
+        calls.append((arrays, qv, starts, ql, kw))
+        return real(arrays, qv, starts, ql, **kw)
+
+    search.beam_search_full = capture
+    try:
+        index.search(torch.as_tensor(queries).cuda(), 10, QueryParams(search_list_size=100,
+                                                                     rescore=50))
+    finally:
+        search.beam_search_full = real
+    if len(calls) != 1:
+        fail(f"the plain index's search made {len(calls)} full-precision beam searches")
+    arrays, qv, starts, ql, kw = calls[0]
+    if ql is None:
+        ql = torch.zeros((qv.shape[0], 0), dtype=torch.int32, device=qv.device)
+    kw = {k: kw[k] for k in ("search_list_size", "max_iters", "expand_factor", "track_hist",
+                             "window_n", "distance_type")}
+    err = check_full_shape("built search", arrays, qv, starts, ql, kw, False)
+    out = time_beam_search_full(arrays, qv, starts, ql, kw, card)
+    out["max_abs_err"] = err
+    check_deadline("plain loops agreement")
+    return out
 
 
 def check_iter_step(cap_main: int, card: dict) -> dict:
@@ -3896,6 +3970,7 @@ def main(argv=None) -> int:
                 fail("the plain path launched a Hamming kernel")
             require(paths["plain"], FULL_BUILD_KERNELS, "the plain path")
             plain_loops_agreement = phase_plain_loops_agreement(p_index, vectors, queries)
+            built_full = phase_built_full_search(p_index, queries, card)
             gather_dot = time_gather_dot(p_index)
             del p_index
             torch.cuda.empty_cache()
@@ -3991,6 +4066,8 @@ def main(argv=None) -> int:
                 "chain_ms": {k: timing[k]["chain_ms"] for k in BUILD_KERNELS
                              + ("beam_search_full", "iter_step")},
                 "beam_search_full_build_wave": timing["beam_search_full"]["build_wave"],
+                "beam_search_full_built_search": {k: v for k, v in built_full.items()
+                                                  if k != "bound_how"},
                 "loops_agreement": loops, "plain_loops_agreement": plain_loops_agreement,
                 "hamming_matrix_yardsticks_ms": timing["hamming_matrix"]["yardsticks_ms"],
                 "peak_memory_bytes": peaks,

@@ -21,17 +21,25 @@
 //   __shfl_xor_sync.  Rows go through the read-only path (__ldg).
 // - The query's prefix is in shared memory (QS) or, when it does not fit,
 //   read through the read-only cache.
+// - A row already copied into shared memory (warp_shared_row_distance) is
+//   summed by the same lanes in the same order as warp_row_distance's
+//   16-byte path, so both give the same float for the same row.
 // Comparisons of the results are IEEE float comparisons, under which -0.0
 // equals +0.0, as in torch.sort; no result is used as integer bits.
 // Also here, as both kernels take them: the shared bytes of the query's
 // prefix, and the block-wide prefix count that keeps a step's surviving
-// neighbours in slot order.
+// neighbours in slot order; and a lane's share of a row's cp.async copy
+// into shared memory (tests/cuda_emu/cuda_emu.h stands in for the
+// pipeline steps under PGVS_CUDA_EMU).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#ifndef PGVS_CUDA_EMU
+#include <cuda_pipeline.h>
+#endif
 
 namespace pgvs {
 
@@ -147,6 +155,71 @@ __device__ __forceinline__ float warp_row_distance(const void* row, float scale,
     acc = accumulate(acc, row_elem<DT>(row, i, scale), query_elem<QS>(q, i), metric);
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return finish_distance(acc, metric);
+}
+
+// Element i of a row in shared memory, in f32 (int8: times the row's scale).
+template <int DT>
+__device__ __forceinline__ float shared_row_elem(const void* row, int i, float scale) {
+  if constexpr (DT == kRowF32) {
+    return static_cast<const float*>(row)[i];
+  } else if constexpr (DT == kRowBF16) {
+    const unsigned bits = static_cast<const unsigned short*>(row)[i];
+    return __uint_as_float(bits << 16);
+  } else {
+    return __fmul_rn(static_cast<float>(static_cast<const signed char*>(row)[i]), scale);
+  }
+}
+
+// warp_row_distance of a row copied into shared memory (16-byte aligned,
+// the prefix's bytes rounded up to 16): the same chunks a lane, in the same
+// order, then the same tail and sum.
+template <int DT, bool QS>
+__device__ __forceinline__ float warp_shared_row_distance(const void* row, float scale,
+                                                          const float* q, int dt, int metric,
+                                                          int lane) {
+  constexpr int kEpc = 16 / row_elem_bytes<DT>();
+  const int nch = dt / kEpc;
+  const uint4* r4 = static_cast<const uint4*>(row);
+  float acc = 0.0f;
+  for (int c = lane; c < nch; c += 32) acc = chunk_acc<DT, QS>(acc, r4[c], q, c, scale, metric);
+  for (int i = nch * kEpc + lane; i < dt; i += 32)
+    acc = accumulate(acc, shared_row_elem<DT>(row, i, scale), query_elem<QS>(q, i), metric);
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return finish_distance(acc, metric);
+}
+
+// Bytes a copy of a row's first dt elements takes: rounded up to 16
+// (inside the row when rows_vectorizable holds).
+__host__ __device__ inline int row_copy_bytes(int dt, int elem_bytes) {
+  return (dt * elem_bytes + 15) / 16 * 16;
+}
+
+// This lane's share of a row's copy into shared memory, 16 bytes a
+// cp.async (the lane's chunks lane, lane + 32, ..., the ones
+// warp_shared_row_distance sums in it), committed as one group.
+__device__ __forceinline__ void lane_row_copy(void* dst, const void* src, int bytes, int lane) {
+  for (int c = lane * 16; c < bytes; c += 32 * 16)
+    __pipeline_memcpy_async(static_cast<char*>(dst) + c, static_cast<const char*>(src) + c, 16);
+  __pipeline_commit();
+}
+
+// Wait until at most `pending` (< 8) of this thread's latest cp.async
+// groups are in flight (the instruction takes the count as an immediate).
+__device__ __forceinline__ void lane_copies_wait(int pending) {
+#ifdef PGVS_CUDA_EMU
+  __pipeline_wait_prior(pending);
+#else
+  switch (pending) {
+    case 0: __pipeline_wait_prior(0); break;
+    case 1: __pipeline_wait_prior(1); break;
+    case 2: __pipeline_wait_prior(2); break;
+    case 3: __pipeline_wait_prior(3); break;
+    case 4: __pipeline_wait_prior(4); break;
+    case 5: __pipeline_wait_prior(5); break;
+    case 6: __pipeline_wait_prior(6); break;
+    default: __pipeline_wait_prior(7); break;
+  }
+#endif
 }
 
 // Whether rows of `stride` elements of type DT starting at `table` can be

@@ -39,7 +39,7 @@ the beam-search kernel masks before it scores.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -239,6 +239,7 @@ def beam_search_plain(
     distance_type: DistanceType = DistanceType.COSINE,
     window_n: int = 0,
     query_labels: Optional[torch.Tensor] = None,  # i32[Q, Lq]
+    on_scored: Optional[Callable[[torch.Tensor, torch.Tensor], None]] = None,
 ) -> SearchResult:
     """Batched greedy beam search as a Python loop over iterations;
     ``expand_factor`` (E) frontier nodes are visited per iteration,
@@ -257,7 +258,11 @@ def beam_search_plain(
 
     ``query_labels`` of width > 0 (a filtered search): a neighbour is a
     candidate only if its labels (``arrays.node_labels``) overlap its
-    query's; the start nodes are not filtered."""
+    query's; the start nodes are not filtered.
+
+    ``on_scored`` (diagnostics): called with (ids i32[Q, n], scored
+    bool[Q, n]) for the start nodes and for each iteration's survivors,
+    the rows that ``n_dist_comps`` counts."""
     q, s = start_ids.shape
     l = search_list_size
     r_max = arrays.max_degree
@@ -288,6 +293,8 @@ def beam_search_plain(
         start_valid, dist_fn(start_ids), INF
     )
     n_comps = start_valid.sum(dim=1, dtype=torch.int32)
+    if on_scored is not None:
+        on_scored(start_ids, start_valid)
 
     pad = max(l - s, 0)
     init_ids = torch.cat(
@@ -392,6 +399,8 @@ def beam_search_plain(
             nbrs = torch.where(valid, s_key, INVALID_ID)
             cand_d = torch.where(valid, s_d, INF)
         n_comps = n_comps + valid.sum(dim=1, dtype=torch.int32)
+        if on_scored is not None:
+            on_scored(nbrs, valid)
 
         if window_n > 0:
             win_dists, win_ids = merge_sorted_into_window(

@@ -8,25 +8,40 @@ indexed prefix.  The port ran it as a Python loop
 (``graph.search.beam_search_plain``) of one host read and ~150 small
 launches an iteration, gathering [Q, E*R, Dt] rows through
 ``distance.row_distances``.  The kernel (``csrc/beam_search_full.cu``) runs
-each query in its own block to its own end, as the SBQ kernel does, and
-scores each candidate row in place (``csrc/rowdist.cuh``, a warp a row):
-no gathered rows are materialised.
+each query in its own block to its own end, as the SBQ kernel does.  A
+survivor that its query scored in an earlier iteration takes its distance
+from a per-query memo (an id -> distance table in the query's state); the
+others are read and scored in place (``csrc/rowdist.cuh``, a warp a row):
+when the rows start on 16 bytes, each warp streams them into a ring of
+``slots`` row buffers in shared memory by asynchronous copies (each lane
+``cp.async``'s its own 16-byte chunks), ``slots`` rows ahead of the one it
+dots.  No gathered rows are materialised.
 
 Bound on an H100: bytes, behind the chain of dependent iterations.  The
-least device-memory traffic is each distinct scored row's Dt elements,
-each distinct frontier row's R adjacency ids (and each filtered
-neighbour's label row), the inputs and the outputs once (``bound_bytes``);
-the 100k x 768 f32 table (307 MB) does not stay in the 50 MB L2.  Each
-iteration waits on an adjacency read and then on the rows' reads.
+least device-memory traffic of a query is each distinct row it scores (Dt
+elements), each distinct frontier row's R adjacency ids (and each
+filtered neighbour's label row), its inputs and its outputs, once
+(``bound_bytes`` counts the batch's distinct rows once); the 100k x 768
+f32 table (307 MB) does not stay in the 50 MB L2.  A batch is bound by the
+bytes of its queries' distinct rows, which the memo reads once a query; a
+query alone by one SM's rate from device memory (about 55 GB/s for random
+3 KB rows on an H100, ``microbench/sm_read_rate.cu``): its misses' bytes
+an iteration over that rate, behind the chain of an adjacency read
+(``plan``: a block of 512 threads and up to 6 ring slots a warp for a
+batch no larger than the SMs; blocks of 256 and 2 slots for a larger one,
+which keeps two blocks an SM).
 
 Parity: every step is the plain version's, with its stable orders and its
 bitonic merge network; the distances are sums in another order, so the
 outputs are bit-equal to the plain version's where those sums are exact in
-any order (integer-valued rows), and otherwise within float32 rounding.
-Candidates are ranked by comparing (distance, tie-break) as a float and an
-int, not through a packed integer key, so no field width limits the
-distances (negative ones included: inner product) or the ids; -0.0 and
-+0.0 compare equal, as in ``torch.sort``.
+any order (integer-valued rows), and otherwise within float32 rounding.  A
+memo hit is the float that scoring the row again gives (the same code on
+the same row and query), so the memo changes no output; ``n_dist_comps``
+counts the survivors, as the plain version does.  Candidates are ranked by
+64-bit keys: the distance's bits made to order as the floats do (-0.0
+taken as +0.0, which it equals, as in ``torch.sort``), then the
+tie-break; every float maps, so no range limits the distances (negative
+ones included: inner product) or the ids.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, ``beam_search_full_plain``.  ``launches`` counts kernel
@@ -60,7 +75,7 @@ def count_launch() -> None:
 def beam_search_full_plain(arrays, query_vecs, start_ids, query_labels=None, *,
                            search_list_size: int, max_iters: int, expand_factor: int = 1,
                            track_hist: bool = True, window_n: int = 0,
-                           distance_type: DistanceType):
+                           distance_type: DistanceType, on_scored=None):
     """The plain version: ``graph.search.beam_search_plain`` in full precision."""
     from ..graph.search import beam_search_plain
 
@@ -70,8 +85,21 @@ def beam_search_full_plain(arrays, query_vecs, start_ids, query_labels=None, *,
         arrays, no_codes, start_ids, search_list_size=search_list_size, max_iters=max_iters,
         expand_factor=expand_factor, track_hist=track_hist, query_vecs=query_vecs,
         use_codes=False, distance_type=distance_type, window_n=window_n,
-        query_labels=query_labels,
+        query_labels=query_labels, on_scored=on_scored,
     )
+
+
+def distinct_scored_plain(arrays, query_vecs, start_ids, query_labels=None, **search):
+    """The plain loop's SearchResult and, per query, the distinct rows it
+    scored (start nodes and survivors), i32[Q]: ``n_dist_comps`` minus it
+    is the scoring of rows that the query had scored before."""
+    seen = []
+    result = beam_search_full_plain(
+        arrays, query_vecs, start_ids, query_labels,
+        on_scored=lambda ids, valid: seen.append(torch.where(valid, ids, -1)), **search)
+    ids = torch.sort(torch.cat(seen, dim=1), dim=1).values
+    first = torch.cat([ids[:, :1] >= 0, (ids[:, 1:] != ids[:, :-1]) & (ids[:, 1:] >= 0)], dim=1)
+    return result, first.sum(dim=1, dtype=torch.int32)
 
 
 def check_rows(arrays, query_vecs: torch.Tensor) -> None:
@@ -185,14 +213,93 @@ def placement(state: int, query: int, shared_limit: int) -> tuple[bool, bool]:
     return False, query <= shared_limit
 
 
+# A batch no larger than the SMs runs a block of ALONE_THREADS an SM: the
+# memo at its most entries and the deepest ring up to RING_SLOTS_ALONE
+# beside the state and the prefix (2 slots at the 768-wide f32 search: 32
+# rows in flight a block).  A larger batch runs blocks of BATCH_THREADS,
+# BATCH_BLOCKS an SM (an SM holds 512 threads of the kernel's 128
+# registers): a ring of RING_SLOTS_BATCH and the largest memo that fits
+# beside it (4,096 entries at that search).
+ALONE_THREADS, BATCH_THREADS = 512, 256
+RING_SLOTS_ALONE, RING_SLOTS_BATCH, BATCH_BLOCKS = 6, 2, 2
+# An H100 SM's shared memory (228 KB), of which each block reserves 1 KB.
+SM_SHARED_BYTES, BLOCK_RESERVED_BYTES = 233_472, 1024
+# The smallest memo a batch's plan takes to fit its blocks, and the one it
+# takes when the state goes to the scratch buffer anyway (log2 of entries).
+MIN_MEMO_LOG2, SCRATCH_MEMO_LOG2 = 8, 12
+
+
+def rows_vectorizable(vecs: torch.Tensor) -> bool:
+    """Whether the rows start on 16 bytes (``rowdist.cuh``'s test): the
+    ring's 16-byte copies need it."""
+    return vecs.data_ptr() % 16 == 0 and vecs.shape[1] * vecs.element_size() % 16 == 0
+
+
+def plan(lib, *, q: int, sms: int, l: int, window_n: int, e: int, r: int, dt: int,
+         dtype: torch.dtype, vec: bool, shared_limit: int, slots: Optional[int] = None,
+         memo_log2: Optional[int] = None, threads: Optional[int] = None) -> dict:
+    """How a launch runs: ``threads`` a block, ``memo_log2`` (the memo's
+    2^memo_log2 entries), ``slots`` (ring slots a warp; 0 without the ring:
+    the rows are not on 16 bytes or no ring fits), ``state_bytes`` (a
+    query's state, the memo included), ``state_shared`` and
+    ``query_shared`` (else the scratch buffer, else device memory).  A
+    batch within ``sms`` takes ALONE_THREADS, the largest memo and the
+    deepest ring up to RING_SLOTS_ALONE that fits beside the state and the
+    prefix, else beside the state, else alone (the state goes to the
+    scratch buffer); a larger batch BATCH_THREADS, RING_SLOTS_BATCH and the
+    largest memo with which BATCH_BLOCKS blocks fit an SM (at least
+    2^MIN_MEMO_LOG2 entries; 2^SCRATCH_MEMO_LOG2 when even the smallest does
+    not fit and the state goes to the scratch buffer).  ``slots``,
+    ``memo_log2`` and ``threads`` given: those, for a comparison."""
+    query = lib.pgvs_beam_search_full_query_bytes(dt)
+    code = ROW_DTYPES[dtype]
+    most = lib.pgvs_beam_search_full_memo_entries().bit_length() - 1
+    alone = q <= sms
+    if threads is None:
+        threads = ALONE_THREADS if alone else BATCH_THREADS
+
+    def ring(k: int) -> int:
+        return lib.pgvs_beam_search_full_ring_bytes(k, dt, code, threads)
+
+    def state(m: int) -> int:
+        return lib.pgvs_beam_search_full_state_bytes(l, window_n, e, r, m)
+
+    if slots is None:
+        want = (RING_SLOTS_ALONE if alone else RING_SLOTS_BATCH) if vec else 0
+        depths = range(want, 0, -1)
+        st = state(most if memo_log2 is None else memo_log2)
+        slots = next((k for k in depths if ring(k) + st + query <= shared_limit),
+                     next((k for k in depths if ring(k) + st <= shared_limit),
+                          next((k for k in depths if ring(k) <= shared_limit), 0)))
+    if memo_log2 is None:
+        memo_log2 = most
+        if not alone:
+            budget = min(shared_limit,
+                         SM_SHARED_BYTES // BATCH_BLOCKS - BLOCK_RESERVED_BYTES) - ring(slots)
+            least = min(MIN_MEMO_LOG2, most)
+            if state(least) + query > budget:
+                memo_log2 = min(SCRATCH_MEMO_LOG2, most)
+            else:
+                while state(memo_log2) + query > budget:
+                    memo_log2 -= 1
+    state_bytes = state(memo_log2)
+    state_shared, query_shared = placement(state_bytes, query, shared_limit - ring(slots))
+    return dict(state_bytes=state_bytes, state_shared=state_shared, query_shared=query_shared,
+                slots=slots, memo_log2=memo_log2, threads=threads)
+
+
 def launch(arrays, query_vecs, start_ids, query_labels, *, search_list_size: int,
            max_iters: int, expand_factor: int, track_hist: bool, window_n: int,
            distance_type: DistanceType, shared_limit: int = _build.MAX_SHARED_BYTES,
-           lib=None):
+           lib=None, rows_read: Optional[torch.Tensor] = None, slots: Optional[int] = None,
+           memo_log2: Optional[int] = None, threads: Optional[int] = None):
     """One launch on checked CUDA inputs: (the SearchResult's tensors by
     field name, the per-query iteration counts i32[Q]); no host read.
     ``lib``: a library bound by ``bind`` (another build of the same C
-    interface), else this checkout's."""
+    interface), else this checkout's.  ``rows_read`` (diagnostics): an
+    i32[Q] tensor that gets the rows each query read (survivors the memo
+    did not hold, and start nodes).  ``slots``, ``memo_log2``, ``threads``:
+    in place of ``plan``'s, to compare launches of other shapes."""
     q, s = start_ids.shape
     l, h, e = search_list_size, max_iters, expand_factor
     device = start_ids.device
@@ -217,11 +324,16 @@ def launch(arrays, query_vecs, start_ids, query_labels, *, search_list_size: int
     if q == 0:
         return out, iters
     lib = lib or _kernel()
-    state = lib.pgvs_beam_search_full_state_bytes(l, window_n, e, r)
-    state_shared, query_shared = placement(
-        state, lib.pgvs_beam_search_full_query_bytes(dt), shared_limit)
-    scratch = None if state_shared else torch.empty((q * state,), dtype=torch.uint8,
-                                                    device=device)
+    if rows_read is not None and (rows_read.dtype != torch.int32 or rows_read.shape != (q,)
+                                  or rows_read.device != device):
+        raise ValueError("rows_read must be int32 [Q] on the queries' device")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    where = plan(lib, q=q, sms=torch.cuda.get_device_properties(index).multi_processor_count,
+                 l=l, window_n=window_n, e=e, r=r, dt=dt, dtype=vecs.dtype,
+                 vec=rows_vectorizable(vecs), shared_limit=shared_limit, slots=slots,
+                 memo_log2=memo_log2, threads=threads)
+    scratch = None if where["state_shared"] else torch.empty(
+        (q * where["state_bytes"],), dtype=torch.uint8, device=device)
     int8 = vecs.dtype == torch.int8
     o = out
     err = lib.pgvs_beam_search_full(
@@ -231,10 +343,11 @@ def launch(arrays, query_vecs, start_ids, query_labels, *, search_list_size: int
         o["beam_ids"].data_ptr(), o["beam_dists"].data_ptr(), o["beam_visited"].data_ptr(),
         o["hist_ids"].data_ptr(), o["hist_dists"].data_ptr(), o["n_visited"].data_ptr(),
         o["n_dist_comps"].data_ptr(), o["window_ids"].data_ptr(), o["window_dists"].data_ptr(),
-        iters.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        iters.data_ptr(), None if rows_read is None else rows_read.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         q, cap, d, dt, ROW_DTYPES[vecs.dtype], int(distance_type), r, lm, s, lq, l, h,
-        int(track_hist), e, window_n, int(query_shared),
-        device.index if device.index is not None else torch.cuda.current_device(),
+        int(track_hist), e, window_n, int(where["query_shared"]), where["slots"],
+        where["memo_log2"], where["threads"], index,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -246,15 +359,16 @@ def launch(arrays, query_vecs, start_ids, query_labels, *, search_list_size: int
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface's argument types on a loaded library."""
     fn = lib.pgvs_beam_search_full
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 17 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    sb = lib.pgvs_beam_search_full_state_bytes
-    sb.argtypes = [ctypes.c_int] * 4
-    sb.restype = ctypes.c_longlong
-    qb = lib.pgvs_beam_search_full_query_bytes
-    qb.argtypes = [ctypes.c_int]
-    qb.restype = ctypes.c_longlong
+    for name, n_args in (("state_bytes", 5), ("query_bytes", 1), ("ring_bytes", 4)):
+        f = getattr(lib, f"pgvs_beam_search_full_{name}")
+        f.argtypes = [ctypes.c_int] * n_args
+        f.restype = ctypes.c_longlong
+    me = lib.pgvs_beam_search_full_memo_entries
+    me.argtypes = []
+    me.restype = ctypes.c_int
     return lib
 
 
@@ -342,9 +456,12 @@ def check_inputs(q: int, cap: int, d: int, r: int, dt: Optional[int] = None, s: 
 # windows, 1- and 2-label filtered searches, no history, a visit budget that
 # binds, the three placements besides all in shared memory (the state in
 # the scratch buffer with the prefix in shared memory, the state in shared
-# memory with the prefix read from device memory, both in device memory), a
-# prefix shorter than the row (Matryoshka) and a row stride that rules out
-# 16-byte loads (D = 33), R = 65, heavy ties (values 1).
+# memory with the prefix read from device memory, both in device memory;
+# no room for the rows' ring in any), a prefix shorter than the row
+# (Matryoshka) and a row stride that rules out 16-byte loads and the ring
+# (D = 33), R = 65, heavy ties (values 1); then a graph of 256 rows whose
+# neighbourhoods overlap (most survivors hit the memo), and the state and
+# its memo in the scratch buffer with the ring in shared memory.
 CHECK_CASES = [
     (dict(q=64, cap=4096, d=64, r=65),
      dict(search_list_size=32, max_iters=64, expand_factor=2, distance_type=DistanceType.L2)),
@@ -384,6 +501,11 @@ CHECK_CASES = [
     (dict(q=64, cap=4096, d=64, r=65, values=0),
      dict(search_list_size=32, max_iters=64, expand_factor=4,
           distance_type=DistanceType.INNER_PRODUCT)),
+    (dict(q=64, cap=256, d=64, r=65),
+     dict(search_list_size=32, max_iters=64, expand_factor=4, distance_type=DistanceType.L2)),
+    (dict(q=32, cap=4096, d=64, r=65, s=2),
+     dict(search_list_size=64, max_iters=96, expand_factor=2, window_n=300,
+          shared_limit=40_000, distance_type=DistanceType.INNER_PRODUCT)),
 ]
 
 RESULT_FIELDS = ("beam_ids", "beam_dists", "beam_visited", "hist_ids", "hist_dists",

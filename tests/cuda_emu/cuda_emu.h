@@ -1,6 +1,7 @@
 // The CUDA features the loop kernels of csrc/ (beam_search.cu,
 // prune_scan.cu, beam_search_full.cu, iter_step.cu) use, emulated on the
-// CPU so that their sources run under g++ (tests/test_torch_*_emulated.py).  Every
+// CPU so that their sources run under g++ (tests/test_torch_*_emulated.py).
+// PGVS_CUDA_EMU tells rowdist.cuh to take its cp.async steps from here.  Every
 // CUDA thread of a block is a fiber (ucontext) on the calling thread, run
 // in turn until it reaches a barrier: __syncthreads waits for the block,
 // __syncwarp and the warp-wide steps (shuffles, votes, which exchange values
@@ -21,6 +22,8 @@
 #include <deque>
 #include <memory>
 #include <vector>
+
+#define PGVS_CUDA_EMU 1
 
 using std::max;
 using std::min;
@@ -62,6 +65,7 @@ struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
+struct ulonglong2 { unsigned long long x, y; };
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
@@ -90,7 +94,7 @@ struct EmuBlock {
   std::vector<int> arrived;
   std::vector<int> votes;  // __syncthreads_or's predicates
   ucontext_t scheduler;
-  uint64_t lanes[8][32];
+  uint64_t lanes[32][32];
   unsigned char* smem;
   void (*body)(const void*);
   const void* params;

@@ -668,6 +668,53 @@ def test_beam_search_full_kernel_matches_plain_on_card(cuda_device, inputs, sear
         assert beam_search_full.results_close(got, want) == []
 
 
+# CHECK_CASES on integer rows: the L2 search, the overlapping
+# neighbourhoods, the state and memo in the scratch buffer beside the ring.
+FULL_MEMO_CASES = (0, 14, 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FULL_MEMO_CASES)
+def test_beam_search_full_rows_read_on_card(cuda_device, case):
+    """The kernel's ``rows_read``: at most ``n_dist_comps`` and, while the
+    memo has room, the distinct rows the plain loop scored."""
+    inputs, search = beam_search_full.CHECK_CASES[case]
+    assert beam_search_full.exact_case(inputs, search)
+    g = torch.Generator(device=cuda_device).manual_seed(11 + case)
+    arrays, qv, starts, ql = beam_search_full.check_inputs(**inputs, device=cuda_device,
+                                                           generator=g)
+    kw = dict(dict(track_hist=True, window_n=0), **search)
+    rows_read = torch.zeros(qv.shape[0], dtype=torch.int32, device=cuda_device)
+    out, _ = beam_search_full.launch(arrays, qv, starts, ql, rows_read=rows_read, **kw)
+    plain_kw = {k: v for k, v in kw.items() if k != "shared_limit"}
+    want, distinct = beam_search_full.distinct_scored_plain(arrays, qv, starts, ql, **plain_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out["n_dist_comps"], want.n_dist_comps)
+    assert torch.equal(rows_read, distinct)
+    assert bool((rows_read <= out["n_dist_comps"]).all())
+
+
+@pytest.mark.cuda
+def test_beam_search_full_ring_depth_changes_no_bit_on_card(cuda_device):
+    """A batch above the SMs runs blocks of 256 threads with a shallow ring
+    and a smaller memo, a batch within them blocks of 512 with the deepest
+    ring and the largest memo: the same queries give the same outputs bit
+    for bit, float rows under cosine included (the same code on the same
+    row, the same float)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    arrays, qv, starts, ql = beam_search_full.check_inputs(
+        q=300, cap=8192, d=768, r=65, values=0, device=cuda_device, generator=g)
+    kw = dict(search_list_size=64, max_iters=96, expand_factor=4, track_hist=True,
+              window_n=100, distance_type=beam_search_full.DistanceType.COSINE)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert qv.shape[0] > sms
+    batch, _ = beam_search_full.launch(arrays, qv, starts, ql, **kw)
+    part, _ = beam_search_full.launch(arrays, qv[:64], starts[:64], ql[:64], **kw)
+    torch.cuda.synchronize()
+    for field, t in part.items():
+        assert torch.equal(batch[field][:64], t), field
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(iter_step.CHECK_CASES)))
 def test_iter_step_kernel_matches_plain_on_card(cuda_device, case):
