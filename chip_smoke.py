@@ -48,8 +48,10 @@ Phases, each reported on a timestamped, flushed line:
    iter_step against ``iter_step_plain`` at ITER_CASES (the stream's
    shape over 1M slots on the codes, bit-equal; f32 L2 and bf16 inner
    product on integer rows, bit-equal; int8 cosine, within 1e-5), each
-   through its refills and a starvation reseed; the search, the build
-   wave and the stream's first refill timed beside their bounds (the
+   through its refills and a starvation reseed, then a refill deep into
+   the stream (emit_n 1,024, budget 4,096) bit-equal; the search, the
+   build wave and the stream's first refill (also with the state in the
+   scratch buffer) and the deep refill timed beside their bounds (the
    full-precision search's: the batch's distinct rows read once against
    the FMAs of the distinct (query, row) pairs, with the rows each query
    read, the distinct rows it scored and the per-query distinct byte
@@ -575,7 +577,9 @@ FULL_CASES = [
 # and inner product in bf16 (bit-equal), int8 rows under cosine (within
 # float32 rounding), and codes of num_neighbors 200 (R = 260 slots, wider
 # than the kernel's block).  Each runs its refills and a starvation reseed;
-# the first refills of "stream" and "wide R=260" are timed.
+# the first refills of "stream" and "wide R=260" are timed, the first of
+# "stream" also with the state in the scratch buffer, and a refill of
+# ITER_DEEP after the "stream" case's is held to the plain refill and timed.
 SCALE_CAP = ((SCALE_N + 1023) // 1024) * 1024
 ITER_CASES = [
     ("stream", dict(cap=SCALE_CAP, r=65, use_codes=True, w=24),
@@ -589,6 +593,9 @@ ITER_CASES = [
     ("wide R=260", dict(r=260, use_codes=True, w=24),
      dict(frontier=256, distance_type="COSINE", refills=((128, 512), (256, 1024)))),
 ]
+# The deep refill of phase 2, after the "stream" case's refills: (emit_n,
+# visit_budget).
+ITER_DEEP = (1024, 4096)
 # Per-SM f32 operations a clock (CUDA C Programming Guide, compute
 # capability 9.0): the prune's factor arithmetic, the full-precision
 # kernels' FMAs.
@@ -1163,6 +1170,21 @@ def check_iter_step(cap_main: int, card: dict) -> dict:
             f"{'equal' if exact else 'within 1e-5'} (max abs err {case_err})")
         if name == "stream":
             timing = time_iter_step(arrays, qv, qc, state, refills[0], kw, card)
+            # Printed only: the state in the scratch buffer, and a refill deep
+            # into the stream (held to the plain refill first).
+            time_iter_step(arrays, qv, qc, state, refills[0], kw, card, shared_limit=0,
+                           label="the state in the scratch buffer")
+            emit_n, budget = ITER_DEEP
+            got = iterate.iter_step(ours, arrays, qv, qc, emit_n=emit_n, visit_budget=budget,
+                                    **kw)
+            want = iterate.iter_step_plain(plain, arrays, qv, qc, emit_n=emit_n,
+                                           visit_budget=budget, **kw)
+            torch.cuda.synchronize()
+            bad = its.refill_differs(got, want, exact)
+            if bad:
+                fail(f"iter_step differs from iter_step_plain at the deep refill: {bad}")
+            time_iter_step(arrays, qv, qc, ours, ITER_DEEP, kw, card,
+                           label="a deep refill (equal to the plain refill)")
         elif name == "wide R=260":  # printed only: the kernels line keeps the stream's
             time_iter_step(arrays, qv, qc, state, refills[0], kw, card)
         del arrays, qv, qc, starts, state, ours, plain, got, want
@@ -1171,17 +1193,20 @@ def check_iter_step(cap_main: int, card: dict) -> dict:
     return dict(timing, max_abs_err=max_err)
 
 
-def time_iter_step(arrays, qv, qc, state, refill, kw: dict, card: dict) -> dict:
+def time_iter_step(arrays, qv, qc, state, refill, kw: dict, card: dict,
+                   shared_limit: int | None = None, label: str = "") -> dict:
     from pgvectorscale_tpu_torch.graph import iterate
     from pgvectorscale_tpu_torch.ops import iter_step as its
 
     emit_n, budget = refill
     win_d, win_ids = iterate.window_seed(state, emit_n)
     call = dict(visit_budget=budget, **kw)
-    ms = cuda_time_ms(lambda i: its.launch(state, arrays, qv, qc, win_ids, win_d, **call), 5)
+    launch_kw = dict(call) if shared_limit is None else dict(call, shared_limit=shared_limit)
+    ms = cuda_time_ms(lambda i: its.launch(state, arrays, qv, qc, win_ids, win_d, **launch_kw),
+                      5)
     plain_ms = event_ms(lambda: iterate.iter_step_plain(state, arrays, qv, qc, emit_n=emit_n,
                                                         **call))
-    new, ids, d, steps = its.launch(state, arrays, qv, qc, win_ids, win_d, **call)
+    new, ids, d, steps = its.launch(state, arrays, qv, qc, win_ids, win_d, **launch_kw)
     steps = int(steps)
     scored = int(new.n_comps) - int(state.n_comps)
     cap, r = arrays.adjacency.shape
@@ -1193,7 +1218,8 @@ def time_iter_step(arrays, qv, qc, state, refill, kw: dict, card: dict) -> dict:
     nbytes = steps * (r * 4 + r + 5) + scored * w * 4 + 2 * (f * 8 + emit_n * 8)
     bound_ms, bound_by, how = bound(nbytes, hamming_ops_ms(card, scored, w))
     chain = steps * 2 * HBM_READ_NS * 1e-6
-    say(f"  iter_step timing at cap={cap} W={w} R={r} F={f} emit_n={emit_n} budget {budget}: "
+    say(f"  iter_step timing{', ' + label if label else ''} at cap={cap} W={w} R={r} F={f} "
+        f"emit_n={emit_n} budget {budget}: "
         f"kernel {ms:.4f} ms ({steps} visits, {ms / max(steps, 1) * 1e3:.3f} us a visit), plain "
         f"{plain_ms:.4f} ms ({plain_ms / max(steps, 1) * 1e3:.1f} us a visit), bound "
         f"{bound_ms:.4f} ms ({bound_by}: {how}; {scored} scored neighbours); the chain "

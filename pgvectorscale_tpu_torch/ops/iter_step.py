@@ -10,16 +10,18 @@ window seed (a stable sort of the pending rows over the table, as JAX's
 ``lax.top_k`` outside its loop) and the emitted-row update after the loop
 stay PyTorch (``graph.iterate.iter_step_kernel``), and the kernel
 (``csrc/iter_step.cu``, one block; ``launch`` here) runs every step of the
-loop in between: the frontier, the window and the query's prefix in shared
-memory (the state in a scratch buffer when it does not fit), ``visited``
-and ``vdist`` written in copies of the state's tensors, so ``state`` is not
-written.  It takes adjacency rows of any width and windows of any size.
+loop in between: the frontier, the window, the frontier's hash set, the
+row's dedup table and the query's prefix in shared memory (the state in a
+scratch buffer when it does not fit), ``visited`` and ``vdist`` written in
+copies of the state's tensors, so ``state`` is not written.  It takes
+adjacency rows of any width and windows of any size.
 
 Bound on an H100: the chain.  Each step waits on the expanded node's
 adjacency row, then on its neighbours' visited flags and code (or vector)
 rows, and the next node is known only after the merge; the 1M-row tables
-of the stream do not stay in the 50 MB L2, so each visit costs about two
-device-memory latencies.
+of the stream do not stay in the 50 MB L2.  The kernel knows the next node
+right after a step's scoring and starts its loads then, so a step finds
+its own loads started (the design in the source).
 
 Codes are scored by Hamming distance (integers, exact), so on codes the
 kernel equals the plain loop bit for bit; in full precision (plain storage,
@@ -215,7 +217,9 @@ def check_inputs(cap: int, r: int, use_codes: bool, w: int = 24, d: int = 64, dt
 # full precision with the prefix beside the scratch state, and windows
 # wider than a round of the shift (5,000 and 9,000) over 12,000 rows
 # visited and not emitted before the first refill (``previsit``), so the
-# shift moves rows across its rounds.
+# shift moves rows across its rounds.  Then one slot a row (R = 1), and
+# frontiers of 100 entries (not a multiple of a warp) on the codes and in
+# full precision.
 CHECK_CASES = [
     (dict(cap=4096, r=65, use_codes=True, w=24),
      dict(frontier=256, distance_type=DistanceType.COSINE, refills=((128, 512), (256, 1024)))),
@@ -252,6 +256,12 @@ CHECK_CASES = [
     (dict(cap=16384, r=65, use_codes=True, w=8),
      dict(frontier=256, distance_type=DistanceType.COSINE, refills=((5000, 96), (9000, 96)),
           previsit=12000)),
+    (dict(cap=1024, r=1, use_codes=True, w=24, invalid_share=0.05),
+     dict(frontier=64, distance_type=DistanceType.COSINE, refills=((16, 64), (16, 64)))),
+    (dict(cap=2048, r=65, use_codes=True, w=24),
+     dict(frontier=100, distance_type=DistanceType.COSINE, refills=((32, 128), (64, 256)))),
+    (dict(cap=2048, r=33, use_codes=False, d=64),
+     dict(frontier=100, distance_type=DistanceType.L2, refills=((32, 128), (32, 128)))),
 ]
 
 

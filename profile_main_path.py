@@ -9,9 +9,11 @@ It builds the same seeded 100k x 768 "cohere" SBQ index as
 ``chip_smoke.py`` twice: once without the profiler, timing every wave,
 and once profiling wave ``WAVE`` (the build is deterministic, so both
 builds do the same work).  It then profiles one 1,024-query search at
-rescore 50 and at rescore 300, and one refill of the streaming iterator
-on that index (emit_n 128, the iterator's budget of 512 visits, from the
-state after a first refill).  Then the full-precision paths: wave
+rescore 50 and at rescore 300, and two refills of the streaming iterator
+on that index: emit_n 128 with the iterator's budget of 512 visits, from
+the state after a first refill, and a deep one (emit_n 1,024, budget
+4,096) after refills of 128, 256 and 512; for each also the device time
+and wall time a visit.  Then the full-precision paths: wave
 ``WAVE`` of a build with build_distance "exact" (built twice the same
 way) and a plain-storage build with one 1,024-query search at L=100.
 For each it prints: the wall
@@ -45,9 +47,10 @@ WAVE = 12  # the profiled build wave (1-based), a searched wave of full size
 TOP = 12  # kernels listed per profile
 
 
-def _summary(prof, wall_s: float, plain_wall_s: float, label: str) -> None:
+def _summary(prof, wall_s: float, plain_wall_s: float, label: str) -> float:
     """Device-side entries only (kernels, copies): the CPU-side op that
-    launched a kernel carries the same device time and is left out."""
+    launched a kernel carries the same device time and is left out.
+    Returns the device milliseconds (0 when none was recorded)."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in kernels)
@@ -55,12 +58,13 @@ def _summary(prof, wall_s: float, plain_wall_s: float, label: str) -> None:
     wall_ms, plain_ms = wall_s * 1e3, plain_wall_s * 1e3
     if dev_us == 0:
         print(f"{label}: wall {plain_ms:.2f} ms; the profiler recorded no device time")
-        return
+        return 0.0
     print(f"{label}: wall {plain_ms:.2f} ms unprofiled ({wall_ms:.2f} ms profiled), "
           f"device {dev_us / 1e3:.2f} ms, busy {dev_us / 1e3 / plain_ms:.3f}, "
           f"device launches {launches}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:TOP]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:110]}")
+    return dev_us / 1e3
 
 
 def _build(vectors: np.ndarray, config: IndexConfig, profile_wave: int = 0):
@@ -88,10 +92,11 @@ def _build(vectors: np.ndarray, config: IndexConfig, profile_wave: int = 0):
     return index, walls, state["prof"]
 
 
-def _profile_call(fn, label: str) -> None:
+def _profile_call(fn, label: str):
     """``fn()`` three times unprofiled (the best wall) and once under the
     profiler; the summary under ``label`` (a callable of the last result
-    gives the label's tail)."""
+    gives the label's tail).  Returns (the last result, device ms, the best
+    unprofiled wall ms)."""
     plain = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -104,12 +109,14 @@ def _profile_call(fn, label: str) -> None:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    _summary(prof, wall, min(plain), label(out) if callable(label) else label)
+    dev_ms = _summary(prof, wall, min(plain), label(out) if callable(label) else label)
+    return out, dev_ms, min(plain) * 1e3
 
 
 def _profile_refill(index) -> None:
-    """One refill of the streaming iterator on ``index`` (its first
-    query's stream, after a first refill)."""
+    """Two refills of the streaming iterator on ``index`` (its first
+    query's stream): emit_n 128 after a first refill, and emit_n 1,024
+    after refills of 128, 256 and 512."""
     from pgvectorscale_tpu_torch.distance import preprocess_query
     from pgvectorscale_tpu_torch.graph import iterate
     from pgvectorscale_tpu_torch.graph.search import get_start_ids
@@ -123,13 +130,21 @@ def _profile_refill(index) -> None:
           else torch.zeros((0,), dtype=torch.int32, device=qv.device))
     state = iterate.init_state(index.arrays, qv, qc, get_start_ids(index.arrays, 1)[0],
                                frontier=256, **kw)
-    state, _, _ = iterate.iter_step(state, index.arrays, qv, qc, emit_n=128, visit_budget=512,
-                                    **kw)
-    before = int(state.n_visits)
-    _profile_call(
-        lambda: iterate.iter_step(state, index.arrays, qv, qc, emit_n=128, visit_budget=512,
-                                  **kw),
-        lambda out: f"stream refill emit_n=128 ({int(out[0].n_visits) - before} visits)")
+    deep = state
+    for emit_n in (128, 256, 512):
+        deep, _, _ = iterate.iter_step(deep, index.arrays, qv, qc, emit_n=emit_n,
+                                       visit_budget=4 * emit_n, **kw)
+        if emit_n == 128:
+            state = deep
+    for name, start, emit_n in (("stream refill", state, 128), ("deep stream refill", deep, 1024)):
+        before = int(start.n_visits)
+        out, dev_ms, wall_ms = _profile_call(
+            lambda: iterate.iter_step(start, index.arrays, qv, qc, emit_n=emit_n,
+                                      visit_budget=4 * emit_n, **kw),
+            lambda out: f"{name} emit_n={emit_n} ({int(out[0].n_visits) - before} visits)")
+        visits = max(int(out[0].n_visits) - before, 1)
+        print(f"    a visit: device {dev_ms / visits * 1e3:.3f} us, wall {wall_ms / visits * 1e3:.3f} "
+              f"us (unprofiled)")
 
 
 def main() -> None:

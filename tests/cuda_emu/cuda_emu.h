@@ -159,6 +159,23 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
   return m;
 }
 inline bool __any_sync(unsigned mask, bool pred) { return __ballot_sync(mask, pred) != 0; }
+// The warp-wide reductions: every lane puts v in, every lane gets op of all.
+template <class Op>
+inline unsigned emu_reduce(unsigned v, Op op) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  emu_block->lanes[warp][lane] = v;
+  __syncwarp();
+  unsigned out = static_cast<unsigned>(emu_block->lanes[warp][0]);
+  for (int k = 1; k < 32; ++k) out = op(out, static_cast<unsigned>(emu_block->lanes[warp][k]));
+  __syncwarp();
+  return out;
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  return emu_reduce(v, [](unsigned a, unsigned b) { return a + b; });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu_reduce(v, [](unsigned a, unsigned b) { return a < b ? a : b; });
+}
 
 // cp.async through the pipeline primitives: a thread's copies wait in
 // its open batch, a commit closes the batch, and a copy lands only when
@@ -210,6 +227,16 @@ inline int atomicCAS(int* a, int expected, int v) {
 }
 inline int atomicMin(int* a, int v) {
   const int old = *a;
+  if (v < old) *a = v;
+  return old;
+}
+inline unsigned atomicMin(unsigned* a, unsigned v) {
+  const unsigned old = *a;
+  if (v < old) *a = v;
+  return old;
+}
+inline unsigned long long atomicMin(unsigned long long* a, unsigned long long v) {
+  const unsigned long long old = *a;
   if (v < old) *a = v;
   return old;
 }

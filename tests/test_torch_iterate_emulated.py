@@ -13,15 +13,26 @@ the codes and on integer rows under L2 and inner product (f32, bf16) every
 state field and every emitted id and distance bit-equal (tolerance: none);
 on int8 rows and under cosine the emitted rows and the frontier within
 1e-5 relative, ids equal up to a near-tie and the same rows after it.  The
-cases cover R = 65, 17 and 260 (more slots than the block has threads),
+cases cover R = 65, 17, 1 and 260 (more slots than the block has threads),
 emit_n 10, 4,096, 5,000 and 9,000 over a deep scan's pending rows, the
 state in the scratch buffer, a visit-budget cut, every code word equal
-(ties everywhere), a frontier of mostly +inf entries, W % 4 != 0, a
-Matryoshka prefix, a row stride that rules out 16-byte loads and the prefix
-read from device memory.
+(ties everywhere), a frontier of mostly +inf entries, frontiers of 100
+entries, W % 4 != 0, a Matryoshka prefix, a row stride that rules out
+16-byte loads and the prefix read from device memory.  The emulation lands
+a lane's cp.async copies only at its wait, so a row read ahead and read
+before that wait reads what its buffer held before.
+
+The kernel is also built with each of its test hooks and held to the plain
+refill at a few cases: ``PGVS_ITER_COLLIDE`` puts every id at the same
+place of the frontier's set and the row's table (every insert and lookup
+walks the ids before it), ``PGVS_ITER_SPEC_MISS`` loads the next node's
+slots ahead and never uses them (every step reads its row again), and
+``PGVS_ITER_SET_SLACK=4`` makes the frontier's set anew every few steps
+(the kept set, its tombstones and the spare all in use).
 """
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -50,8 +61,45 @@ def emulated(tmp_path_factory):
     return its.bind(ctypes.CDLL(str(lib)))
 
 
+# The test hooks' builds and the cases each runs: for the colliding ids the
+# narrow frontiers (each probe walks every id before it: R = 17, R = 1 and
+# frontiers of 100 on the codes and in full precision); for the slots never
+# used and the sets made anew, codes, codes with 90% of the slots empty or
+# the state in the scratch buffer (the tables in device memory), full
+# precision, and the widest windows.
+HOOKS = {"collide": "PGVS_ITER_COLLIDE=1", "miss": "PGVS_ITER_SPEC_MISS=1",
+         "rebuild": "PGVS_ITER_SET_SLACK=4"}
+HOOK_CASES = [("collide", 7), ("collide", 16), ("collide", 17), ("collide", 18),
+              ("miss", 0), ("miss", 3), ("miss", 15), ("miss", 18),
+              ("rebuild", 0), ("rebuild", 5), ("rebuild", 14), ("rebuild", 17)]
+
+
+@pytest.fixture(scope="module")
+def emulated_hooks(tmp_path_factory):
+    """The kernel built for the CPU with each of HOOKS (the builds at once):
+    name -> library."""
+    def build(item):
+        name, define = item
+        return name, build_emulated(tmp_path_factory.mktemp(f"iter_emu_{name}"), "iter_step",
+                                    "iter_step_kernel", defines=(f"-D{define}",))
+
+    with ThreadPoolExecutor(len(HOOKS)) as pool:
+        return {name: its.bind(ctypes.CDLL(str(lib))) for name, lib in pool.map(build, HOOKS.items())}
+
+
 @pytest.mark.parametrize("case", range(len(its.CHECK_CASES)))
 def test_emulated_refills_match_plain(emulated, case):
+    run_case(emulated, case)
+
+
+@pytest.mark.parametrize("hook,case", HOOK_CASES)
+def test_emulated_hooks_match_plain(emulated_hooks, hook, case):
+    run_case(emulated_hooks[hook], case)
+
+
+def run_case(lib, case):
+    """A CHECK_CASES case's refills and reseed through ``lib`` and through
+    the plain refill, compared after each."""
     inputs, traversal = (dict(c) for c in its.CHECK_CASES[case])
     g = torch.Generator().manual_seed(61 + case)
     arrays, qv, qc, starts = its.check_inputs(**inputs, generator=g)
@@ -70,7 +118,7 @@ def test_emulated_refills_match_plain(emulated, case):
             plain = iterate.reseed(plain, arrays, qv, qc, nid, **kw)
         budget = min(budget, BUDGET)
         got = iterate.iter_step_kernel(ours, arrays, qv, qc, emit_n=emit_n,
-                                       visit_budget=budget, shared_limit=limit, lib=emulated,
+                                       visit_budget=budget, shared_limit=limit, lib=lib,
                                        device_args=(0, None), **kw)
         assert int(got[0].n_visits) - int(ours.n_visits) <= budget
         want = iterate.iter_step_plain(plain, arrays, qv, qc, emit_n=emit_n,
