@@ -55,7 +55,12 @@ Phases, each reported on a timestamped, flushed line:
    full-precision search's: the batch's distinct rows read once against
    the FMAs of the distinct (query, row) pairs, with the rows each query
    read, the distinct rows it scored and the per-query distinct byte
-   floor printed beside them).
+   floor printed beside them).  The reachability BFS kernel equal to both plain
+   BFS versions (scatter and CSR pull) at BFS_CASES: phase 13's 1M slots
+   at R = 65, a 1,000-level chain, islands with ids past count and cap,
+   start -1; each timed (kernel, both plain versions) beside its byte bound
+   and its chain (levels x one dependent read), with the levels the grid
+   and block 0 alone expanded.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -145,7 +150,9 @@ Phases, each reported on a timestamped, flushed line:
    (the script's 2,048 was chosen for a 16 GB chip).  The host corpus is
    3.07 GB of float32, so ``build`` must take the chunked ingest: 6 chunks
    of 175,104 rows (fails if the one-shot ingest runs).  Seconds for
-   ingest / waves / finalize, the scatter BFS alone, the graph checks; the
+   ingest / waves / finalize, the BFS kernel alone (host clock with the
+   read of its sum, and device time) and ``repair_orphans`` on the healthy
+   index (what each add pays: one BFS and one read), the graph checks; the
    chunked quantizer statistics against one ``sbq.train`` pass over the
    whole corpus on the card (mean within 1e-4 of its largest magnitude,
    M2 within 1e-4 relative per dimension) and the share of code words
@@ -187,8 +194,12 @@ Phases, each reported on a timestamped, flushed line:
    checkpoints.
 17. host graph and tools: on phase 13's 1M adjacency (copied to the host
    before that index is freed) the native BFS (``native/``, g++) equals
-   the device BFS; with the in-edges of 1,000 seeded rows cleared,
-   ``repair_orphans_host`` leaves no orphan within the degree bound.
+   the BFS kernel's; with the in-edges of 1,000 seeded rows cleared,
+   ``repair_orphans_host`` leaves no orphan within the degree bound, and
+   so does ``repair_orphans_device`` on the card under torch's sync debug
+   mode "error" (no host read in it or in the BFS after it), bit-equal to
+   its run on the CPU; the BFS kernel timed on the repaired graph, whose
+   1,000 orphans are a chain of as many levels.
    The CLI on the card through ``cli.main`` in this process: ``bench``
    at its defaults (100k cohere, 1,000 queries; recall at L=200 at least
    0.80), then build / info / search / add / delete / compact / info on
@@ -376,19 +387,20 @@ MIN_FILTERED_RECALL = 0.50
 RARE_LABELS, RARE_QUERIES = 5, 64
 RARE_REACH_FLOOR = {96: 209, 99: 271, 95: 269, 94: 277, 98: 1}
 KERNELS = ("edge_gather", "hamming_matrix", "beam_search", "prune_scan", "beam_search_full",
-           "iter_step")
+           "iter_step", "reachable")
 # The kernels every build path with searched waves launches: the beam
-# search (each searched wave) and the prune (every wave).  Since the beam
-# loop is a kernel, edge_gather serves only the "expand" rescore window and
-# the streaming iterator.
-BUILD_KERNELS = ("beam_search", "prune_scan")
+# search (each searched wave), the prune (every wave) and the reachability
+# BFS (finalize's and each add's orphan repair).  Since the beam loop is a
+# kernel, edge_gather serves only the "expand" rescore window and the
+# streaming iterator.
+BUILD_KERNELS = ("beam_search", "prune_scan", "reachable")
 # The life cycles' kernels: seed waves through the Hamming matrix, then the
 # build kernels.
 LIFE_KERNELS = ("hamming_matrix",) + BUILD_KERNELS
 # The kernels of a full-precision build (plain storage, build_distance
 # "exact"): the full-precision beam search and the prune; and the Hamming
 # kernels, which such a build must not launch.
-FULL_BUILD_KERNELS = ("beam_search_full", "prune_scan")
+FULL_BUILD_KERNELS = ("beam_search_full", "prune_scan", "reachable")
 HAMMING_KERNELS = ("edge_gather", "hamming_matrix", "beam_search")
 # Phase 13, benchmarks/scale.py's deployment: rows (cut from 5,000,000),
 # seed, and the (L, rescore, E, strategy, visit_factor) points; the recall
@@ -596,6 +608,19 @@ ITER_CASES = [
 # The deep refill of phase 2, after the "stream" case's refills: (emit_n,
 # visit_budget).
 ITER_DEEP = (1024, 4096)
+# Phase 2, the BFS kernel against both plain BFS versions (scatter and CSR
+# pull): (name, ops.reachable.graph_case arguments).  Phase 13's 1M slots at
+# R = 65 with INVALID_EDGE_SHARE of the slots empty (the kernels line's
+# shape: the BFS that each add into the 1M index pays); a chain of ORPHANS
+# levels (the chain that phase 17's repair of as many orphans writes) over
+# 100k slots, through which the plain versions take a round a level;
+# islands, with ids at and past count and cap; start -1.
+BFS_CASES = [
+    ("random 1M", dict(kind="random", cap=SCALE_CAP, r=65, invalid_share=INVALID_EDGE_SHARE)),
+    ("chain", dict(kind="chain", cap=100_000, r=65, levels=ORPHANS)),
+    ("islands", dict(kind="islands", cap=100_000, r=65, count=90_000)),
+    ("start -1", dict(kind="random", cap=100_000, r=65, start=-1)),
+]
 # Per-SM f32 operations a clock (CUDA C Programming Guide, compute
 # capability 9.0): the prune's factor arithmetic, the full-precision
 # kernels' FMAs.
@@ -737,7 +762,8 @@ def phase_kernel_check(cap_main: int, card: dict) -> dict:
             "beam_search": check_beam_search(cap_main, card),
             "prune_scan": check_prune_scan(card),
             "beam_search_full": check_beam_search_full(cap_main, card),
-            "iter_step": check_iter_step(cap_main, card)}
+            "iter_step": check_iter_step(cap_main, card),
+            "reachable": check_reachable(card)}
 
 
 def event_ms(fn) -> float:
@@ -1230,6 +1256,69 @@ def time_iter_step(arrays, qv, qc, state, refill, kw: dict, card: dict,
                 us_per_visit=ms / max(steps, 1) * 1e3,
                 shape=dict(cap=cap, w=w, r=r, frontier=f, emit_n=emit_n, budget=budget,
                            visits=steps, scored=scored))
+
+
+def check_reachable(card: dict) -> dict:
+    """The BFS kernel against ``reachable_scatter_plain`` and
+    ``reachable_csr_plain`` on the card at every BFS_CASES graph: equal
+    reachable sets.  Each case timed: the kernel (CUDA events, the calls
+    queued behind a device sleep) and both plain versions (one call each
+    between events: they read the device every round), beside the bound
+    (the reached rows' adjacency once and the output,
+    ``ops.reachable.bound_bytes``; the kernel's queues are its own overhead;
+    the operations, one
+    compare and one bit test a slot, on the CUDA cores) and the chain
+    (levels x one dependent device read).  The first case is the kernels
+    line's."""
+    import torch
+
+    from pgvectorscale_tpu_torch.ops import reachable as rc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    cases, max_err = {}, 0.0
+    for name, case in BFS_CASES:
+        opts = {k: v for k, v in case.items() if k not in ("kind", "cap", "r")}
+        adj, count, start = rc.graph_case(case["kind"], case["cap"], case["r"], "cuda", g, **opts)
+        plain = {}
+        scatter_ms = event_ms(lambda: plain.update(
+            scatter=rc.reachable_scatter_plain(adj, count, start)))
+        csr_ms = event_ms(lambda: plain.update(csr=rc.reachable_csr_plain(adj, count, start)))
+        got, head = rc.launch(adj, count, start)
+        torch.cuda.synchronize()
+        max_err = max(max_err, max_abs_diff(got.int(), plain["scatter"].int()),
+                      max_abs_diff(got.int(), plain["csr"].int()))
+        if not (torch.equal(got, plain["scatter"]) and torch.equal(got, plain["csr"])):
+            fail(f"reachable differs from the plain BFS at {name}: kernel "
+                 f"{int(got.sum())} rows, scatter {int(plain['scatter'].sum())}, csr "
+                 f"{int(plain['csr'].sum())}")
+        levels = rc.levels(head)
+        reached = int(got.sum())
+        ms = cuda_time_ms(lambda i: rc.launch(adj, count, start), 10)
+        cap, r = adj.shape
+        slots = reached * r
+        ops_ms = 2 * slots / (card["sms"] * card["sm_hz"] * INT32_OPS_PER_CLK_SM) * 1e3
+        bound_ms, bound_by, how = bound(rc.bound_bytes(cap, r, reached),
+                                        dict(ms=ops_ms, way="int32 on the CUDA cores"))
+        n_levels = levels["grid"] + levels["block"]
+        chain = n_levels * HBM_READ_NS * 1e-6
+        say(f"  reachable {name} (cap={cap} R={r} count={count} start={start}): {reached} rows "
+            f"reached in {n_levels} levels ({levels['grid']} by the grid, {levels['block']} by "
+            f"block 0 alone); kernel {ms:.4f} ms, scatter {scatter_ms:.4f} ms, csr "
+            f"{csr_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how}); the chain "
+            f"{chain:.4f} ms ({n_levels} levels x one dependent read at {HBM_READ_NS} ns)")
+        cases[name] = dict(ms=ms, scatter_ms=scatter_ms, csr_ms=csr_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, bound_how=how, chain_bound_ms=chain,
+                           reached=reached, levels=levels,
+                           shape=dict(cap=cap, r=r, count=count, start=start, kind=case["kind"]))
+        del adj, got, head, plain
+    check_deadline("kernel vs plain")
+    say(f"phase 2 kernel vs plain: reachable equal to both plain versions at all "
+        f"{len(BFS_CASES)} graphs")
+    main = cases[BFS_CASES[0][0]]
+    return dict(ms=main["ms"], plain_ms=main["scatter_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None, bound_how=main["bound_how"],
+                max_abs_err=max_err, chain_ms=cases["chain"]["ms"], shape=main["shape"],
+                cases=cases)
 
 
 def check_edge_gather(cap_main: int, card: dict) -> dict:
@@ -2444,7 +2533,7 @@ def phase_scale(counts):
 
     from pgvectorscale_tpu_torch import QueryParams
     from pgvectorscale_tpu_torch import index as index_mod
-    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device, repair_orphans
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
 
     t = elapsed()
@@ -2481,12 +2570,20 @@ def phase_scale(counts):
     torch.cuda.synchronize()
     t = elapsed()
     reach = int(reachable_on_device(a)[: index.count].sum())
-    torch.cuda.synchronize()
     out["bfs_s"] = elapsed() - t
+    out["bfs_ms"] = event_ms(lambda: reachable_on_device(a))
+    t = elapsed()
+    repaired = repair_orphans(a)
+    torch.cuda.synchronize()
+    out["repair_s"] = elapsed() - t
     say(f"  int8 build: {ingests['chunks']} ingest chunks, one-shot ingests "
-        f"{ingests['one-shot']}; scatter BFS over {index.count} rows {out['bfs_s']:.3f}s "
-        f"({reach} reachable); launches {out['build_launches']}; peak device memory "
-        f"{out['build_peak_bytes']} B; store {out['store_bytes']}")
+        f"{ingests['one-shot']}; kernel BFS over {index.count} rows {out['bfs_s']:.4f}s on the "
+        f"host clock with the read of its sum ({out['bfs_ms']:.4f} ms of device time, {reach} "
+        f"reachable); repair_orphans on the healthy index (each add's) {out['repair_s']:.4f}s; "
+        f"launches {out['build_launches']}; peak device memory {out['build_peak_bytes']} B; "
+        f"store {out['store_bytes']}")
+    if repaired is not a:
+        fail("int8 build: repair_orphans changed the healthy index")
     if ingests["one-shot"] or ingests["chunks"] != -(-SCALE_N // index_mod._ingest_chunk_rows(
             SCALE_N, DIM)):
         fail("int8 build: the build did not take the chunked ingest")
@@ -2830,7 +2927,7 @@ def phase_debug_helpers(index) -> dict:
 
 
 def download_graph(index) -> dict:
-    """Phase 13's adjacency on the host for phase 17, with the device
+    """Phase 13's adjacency on the host for phase 17, with the kernel
     BFS's reachable set and seconds (read before the index is freed)."""
     import torch
 
@@ -2857,8 +2954,9 @@ import json, os, signal, sys, time
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
-from pgvectorscale_tpu_torch.ops import _build, beam_search, edge_gather, hamming_matrix, prune_scan
-for name in ("edge_gather", "hamming_matrix", "beam_search", "prune_scan"):
+from pgvectorscale_tpu_torch.ops import (_build, beam_search, edge_gather, hamming_matrix,
+                                         prune_scan, reachable)
+for name in ("edge_gather", "hamming_matrix", "beam_search", "prune_scan", "reachable"):
     _build.load(name, build_dir=sys.argv[2])
 from pgvectorscale_tpu_torch import DiskannIndex, IndexConfig, durability
 
@@ -2889,7 +2987,8 @@ index.add(vectors[pos : pos + sizes["reuse"]])
 torch.cuda.synchronize()
 print(json.dumps({"base_checkpoint_s": base_s, "appends": appends,
                   "launches": {m.__name__.rsplit(".", 1)[1]: m.launches
-                               for m in (edge_gather, hamming_matrix, beam_search, prune_scan)},
+                               for m in (edge_gather, hamming_matrix, beam_search, prune_scan,
+                                         reachable)},
                   "count": index.count, "num_live": index.num_live}), flush=True)
 os.kill(os.getpid(), signal.SIGKILL)
 """
@@ -3008,9 +3107,11 @@ def phase_durable(vectors, queries, build_dir: Path, snap: dict, counts) -> dict
 
 def phase_host_graph(graph: dict) -> dict:
     """Phase 17, host graph: on phase 13's 1M adjacency the native BFS's
-    reachable set equals the device BFS's; on a copy with the in-edges of
+    reachable set equals the kernel BFS's; on a copy with the in-edges of
     ORPHANS seeded rows cleared, ``repair_orphans_host`` (native) leaves
-    no orphan and keeps the degree bound."""
+    no orphan and keeps the degree bound, and so does
+    ``repair_orphans_device`` on the card, under torch's sync debug mode
+    (no host read), bit-equal to the same function on the CPU."""
     import numpy as np
     import torch
 
@@ -3034,18 +3135,19 @@ def phase_host_graph(graph: dict) -> dict:
     cut = adj.copy()
     cut[hit[np.where(cut >= 0, cut, n)]] = -1
     out["orphans_before"] = int((~native.bfs_reachable(cut, start)).sum())
-    dev = torch.device("cuda")
-    arrays = GraphArrays(
-        vectors=torch.zeros((n, 0), device=dev), codes=torch.zeros((n, 0), dtype=torch.int32,
-                                                                  device=dev),
-        adjacency=torch.from_numpy(cut).to(dev), deleted=torch.zeros(n, dtype=torch.bool,
-                                                                     device=dev),
-        count=n, default_start=start,
-        node_labels=torch.zeros((n, 0), dtype=torch.int32, device=dev),
-        label_start_keys=torch.zeros(1, dtype=torch.int32, device=dev),
-        label_start_ids=torch.zeros(1, dtype=torch.int32, device=dev),
-        vec_scales=torch.ones(n, device=dev),
-    )
+    def arrays_on(dev):
+        return GraphArrays(
+            vectors=torch.zeros((n, 0), device=dev),
+            codes=torch.zeros((n, 0), dtype=torch.int32, device=dev),
+            adjacency=torch.from_numpy(cut).to(dev),
+            deleted=torch.zeros(n, dtype=torch.bool, device=dev), count=n, default_start=start,
+            node_labels=torch.zeros((n, 0), dtype=torch.int32, device=dev),
+            label_start_keys=torch.zeros(1, dtype=torch.int32, device=dev),
+            label_start_ids=torch.zeros(1, dtype=torch.int32, device=dev),
+            vec_scales=torch.ones(n, device=dev),
+        )
+
+    arrays = arrays_on(torch.device("cuda"))
     torch.cuda.synchronize()
     t = elapsed()
     repaired = repair_orphans_host(arrays)
@@ -3053,8 +3155,9 @@ def phase_host_graph(graph: dict) -> dict:
     out["host_repair_s"] = elapsed() - t
     out["orphans_after"] = int((~reachable_on_device(repaired)[:n]).sum())
     out["max_degree"] = int((repaired.adjacency != -1).sum(dim=1).max())
-    say(f"phase 17 {phase}: phase 13's adjacency ({n} rows), native BFS {out['native_bfs_s']:.3f}s vs device "
-        f"scatter BFS {out['device_bfs_s']:.3f}s, reachable sets "
+    out["device_repair"] = device_repair(arrays, arrays_on(torch.device("cpu")), graph["r_max"])
+    say(f"phase 17 {phase}: phase 13's adjacency ({n} rows), native BFS {out['native_bfs_s']:.3f}s vs "
+        f"kernel BFS {out['device_bfs_s']:.4f}s, reachable sets "
         f"{'equal' if out['equal'] else 'DIFFERENT'} ({int(reach.sum())} rows); in-edges of "
         f"{ORPHANS} rows cleared: {out['orphans_before']} orphans, host repair "
         f"{out['host_repair_s']:.3f}s (download, native repair, upload) -> "
@@ -3065,6 +3168,49 @@ def phase_host_graph(graph: dict) -> dict:
     if out["orphans_after"] or out["max_degree"] > graph["r_max"]:
         fail(f"{phase}: the host repair left orphans or broke the degree bound")
     check_deadline(phase)
+    return out
+
+
+def device_repair(arrays, cpu_arrays, r_max: int) -> dict:
+    """Phase 17: ``repair_orphans_device`` on the cut 1M adjacency on the
+    card under ``torch.cuda.set_sync_debug_mode("error")`` (a host read
+    raises), then its BFS of the repaired graph (the chain of the orphans
+    one level each); the adjacency must equal the CPU's run of the same
+    function bit for bit, reach every row and keep the degree bound."""
+    import torch
+
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device, repair_orphans_device
+
+    n = arrays.count
+    torch.cuda.synchronize()
+    t = elapsed()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        repaired = repair_orphans_device(arrays)
+        seen = reachable_on_device(repaired)
+    except RuntimeError as err:
+        fail(f"host graph: the device repair or its BFS read the device from the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out = dict(repair_and_bfs_s=elapsed() - t)
+    out["chain_bfs_ms"] = event_ms(lambda: reachable_on_device(repaired))
+    out["orphans_after"] = int((~seen[:n]).sum())
+    out["max_degree"] = int((repaired.adjacency != -1).sum(dim=1).max())
+    t = elapsed()
+    want = repair_orphans_device(cpu_arrays)
+    out["cpu_s"] = elapsed() - t
+    out["equal_to_cpu"] = bool(torch.equal(repaired.adjacency.cpu(), want.adjacency))
+    out["edges_written"] = int((repaired.adjacency != arrays.adjacency).sum())
+    say(f"phase 17 host graph: repair_orphans_device on the card with no host read "
+        f"({out['repair_and_bfs_s']:.4f}s with the BFS after it): {out['edges_written']} "
+        f"slots written, {out['orphans_after']} orphans, max degree {out['max_degree']} (r_max "
+        f"{r_max}), adjacency {'equal' if out['equal_to_cpu'] else 'DIFFERENT'} to the CPU's "
+        f"({out['cpu_s']:.2f}s); kernel BFS of the repaired graph (the orphans' chain) "
+        f"{out['chain_bfs_ms']:.4f} ms")
+    if out["orphans_after"] or out["max_degree"] > r_max or not out["equal_to_cpu"]:
+        fail("host graph: the device repair left orphans, broke the degree bound or differs "
+             "from the CPU's")
     return out
 
 
@@ -3708,7 +3854,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
 from pgvectorscale_tpu_torch.ops import _build
-for name in ("edge_gather", "hamming_matrix", "beam_search", "prune_scan"):
+for name in ("edge_gather", "hamming_matrix", "beam_search", "prune_scan", "reachable"):
     _build.load(name, build_dir=sys.argv[2])
 from pgvectorscale_tpu_torch import IndexConfig, QueryParams, ShardedDiskannIndex
 from pgvectorscale_tpu_torch.parallel import multihost
@@ -3822,11 +3968,12 @@ def main(argv=None) -> int:
     from pgvectorscale_tpu_torch.config import StorageLayout
     from pgvectorscale_tpu_torch.io.datasets import synthetic_corpus
     from pgvectorscale_tpu_torch.ops import (_build, beam_search, beam_search_full, edge_gather,
-                                             hamming_matrix, iter_step, prune_scan)
+                                             hamming_matrix, iter_step, prune_scan, reachable)
 
     modules = {"edge_gather": edge_gather, "hamming_matrix": hamming_matrix,
                "beam_search": beam_search, "prune_scan": prune_scan,
-               "beam_search_full": beam_search_full, "iter_step": iter_step}
+               "beam_search_full": beam_search_full, "iter_step": iter_step,
+               "reachable": reachable}
 
     def reset_counts() -> None:
         for m in modules.values():
@@ -4091,6 +4238,7 @@ def main(argv=None) -> int:
                 "beam_search_build_wave": timing["beam_search"]["build_wave"],
                 "chain_ms": {k: timing[k]["chain_ms"] for k in BUILD_KERNELS
                              + ("beam_search_full", "iter_step")},
+                "reachable_cases": timing["reachable"]["cases"],
                 "beam_search_full_build_wave": timing["beam_search_full"]["build_wave"],
                 "beam_search_full_built_search": {k: v for k, v in built_full.items()
                                                   if k != "bound_how"},
@@ -4141,7 +4289,8 @@ def main(argv=None) -> int:
                 "beam_search": "pgvectorscale_tpu/graph/search.py:580",
                 "prune_scan": "pgvectorscale_tpu/graph/prune.py:157",
                 "beam_search_full": "pgvectorscale_tpu/graph/search.py:580",
-                "iter_step": "pgvectorscale_tpu/graph/iterate.py:279"}
+                "iter_step": "pgvectorscale_tpu/graph/iterate.py:279",
+                "reachable": "pgvectorscale_tpu/graph/build.py:1115"}
     kernels = {"kernels": [{
         "name": k,
         "route": "cuda",

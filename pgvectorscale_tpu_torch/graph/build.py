@@ -31,7 +31,8 @@ label-aware.  Brute-force waves have no filtered pass.
 
 Every step is batched over the wave.  Python loops run only where the
 JAX package runs a sequential loop: over waves, beam iterations,
-RobustPrune's dependent scan, the finalize batches and the BFS rounds.
+RobustPrune's dependent scan and the finalize batches; the reachability
+BFS is one kernel launch on the card (``ops.reachable``).
 Rows that the JAX package writes with ``mode="drop"`` go through one
 spare row (``_set_rows``), so no write needs a host round trip.
 """
@@ -50,6 +51,12 @@ from ..config import DistanceType, IndexConfig
 from ..distance import row_distances
 from ..ops.hamming import hamming_gather
 from ..ops.hamming_matrix import hamming_matrix
+from ..ops.reachable import (
+    CSR_BFS_MIN_CAP,
+    reachable,
+    reachable_csr_plain,
+    reachable_scatter_plain,
+)
 from ..store import INVALID_ID, GraphArrays, dequant_rows
 from .prune import (
     alpha_schedule,
@@ -81,8 +88,13 @@ BUILD_EXPAND_FACTOR = 4
 BRUTE_CANDIDATE_THRESHOLD = 4096
 # Reverse edges considered per overflowing row per wave.
 INCOMING_CAP = 64
-# Orphans chained per repair round.
+# Orphans chained per repair round (JAX's top_k width); JAX's repair stops
+# after 256 rounds.
 _REPAIR_CHAIN_MAX = 4096
+_REPAIR_ROUNDS = 256
+# From this capacity on a CPU adjacency takes the CSR pull-BFS, as the JAX
+# package's reachable_on_device does (the card always takes the kernel).
+_CSR_BFS_MIN_CAP = CSR_BFS_MIN_CAP
 # Above this many code bits the prune's bit unpack is chunked over words,
 # bounding the transient [B, C, bits] f32 tensor (16k-dim indexes).
 _PAIRWISE_CHUNK_BITS = 4096
@@ -630,73 +642,77 @@ def prune_over_degree(arrays: GraphArrays, ctx: BuildContext) -> GraphArrays:
 
 
 def _reachable_scatter(arrays: GraphArrays) -> torch.Tensor:
-    """bool[cap] reachability from the default start node: each round
-    propagates ``seen`` across every edge with one scatter-max, until
-    nothing changes (one host read per round)."""
-    cap = arrays.capacity
-    dev = arrays.device
-    adj = arrays.adjacency
-    in_graph = torch.arange(cap, device=dev) < arrays.count
-    seen = torch.zeros((cap,), dtype=torch.int32, device=dev)
-    if arrays.default_start >= 0:
-        seen[arrays.default_start] = 1
-    targets = torch.where(adj >= 0, adj, cap).reshape(-1).long()
-    edge_ok = adj != INVALID_ID
-    while True:
-        contrib = ((seen > 0) & in_graph)[:, None] & edge_ok
-        new_seen = torch.cat([seen, seen.new_zeros(1)]).scatter_reduce(
-            0, targets, contrib.reshape(-1).to(torch.int32), reduce="amax"
-        )[:cap]
-        changed = bool(torch.any(new_seen != seen))
-        seen = new_seen
-        if not changed:
-            break
-    return (seen > 0) & in_graph
+    """bool[cap] reachability from the default start node by JAX's scatter
+    BFS (one host read a round): a plain version."""
+    return reachable_scatter_plain(arrays.adjacency, arrays.count, arrays.default_start)
 
 
-reachable_on_device = _reachable_scatter
+def _reachable_csr(arrays: GraphArrays) -> torch.Tensor:
+    """bool[cap] reachability from the default start node by JAX's CSR
+    pull-BFS (one host read a round): a plain version."""
+    return reachable_csr_plain(arrays.adjacency, arrays.count, arrays.default_start)
+
+
+def reachable_on_device(arrays: GraphArrays) -> torch.Tensor:
+    """bool[cap] reachability from the default start node.  On the card,
+    one launch of the BFS kernel at every capacity; on the CPU the plain
+    BFS that the JAX package picks for the capacity."""
+    return reachable(arrays.adjacency, arrays.count, arrays.default_start,
+                     csr_min_cap=_CSR_BFS_MIN_CAP)
 
 
 def repair_orphans_device(arrays: GraphArrays) -> GraphArrays:
     """One BFS, then chain the orphans off the start node:
     start -> o_0 -> o_1 -> ... using the last slots of orphan rows (no
     path from the start runs through an orphan) and re-homing the start's
-    displaced last edge as o_0's second-to-last edge."""
+    displaced last edge as the head's second-to-last edge.
+
+    JAX's loop takes k = min(cap, _REPAIR_CHAIN_MAX) orphans a round in
+    ascending id for up to _REPAIR_ROUNDS rounds.  Its writes are written
+    here at once, in fixed-shape tensor ops with no host read: with p an
+    orphan's place in ascending order, g = p // k its round and q = p % k
+    its place in the round, for p < _REPAIR_ROUNDS * k,
+
+      (o_p, R-1)  <- o_{p+1}      when q < k - 1 and o_{p+1} exists;
+      (o_p, R-2)  <- t_g          when q == 0: t_0 = adj[start, R-1] (if
+                                  not -1), t_g = o_{(g-1) k} (the head that
+                                  round g - 1 wrote into the start's slot);
+      (start, R-1) <- the last round's head.
+
+    With the start past the table JAX drops the entry write and reads the
+    clamped row cap - 1, whose last slot no round writes (it is not an
+    orphan, or the last one): every round re-homes t_0.
+    """
     cap, r_max = arrays.adjacency.shape
-    dev = arrays.device
-    if arrays.default_start < 0:
-        return arrays
     start = arrays.default_start
-    in_graph = torch.arange(cap, device=dev) < arrays.count
+    if start < 0 or cap == 0:
+        return arrays
+    dev = arrays.device
     k = min(cap, _REPAIR_CHAIN_MAX)
-    orphan = in_graph & ~reachable_on_device(arrays)
+    row = torch.arange(cap, device=dev)
+    orphan = (row < arrays.count) & ~reachable_on_device(arrays)
+    pos = torch.cumsum(orphan, 0) - 1  # an orphan's place in ascending order
+    total = pos[-1:] + 1
+    taken = orphan & (pos < _REPAIR_ROUNDS * k)
+    # ids[p]: the p-th orphan (slot cap takes every other row's write).
+    ids = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
+    ids.scatter_(0, torch.where(taken, pos, cap), row)
+    q = torch.remainder(pos, k)
+    g = torch.div(pos, k, rounding_mode="floor")
     adj = arrays.adjacency.clone()
-    rounds = 0
-    while rounds < 256 and bool(orphan.any()):
-        # lax.top_k order: orphans first, ascending id.
-        idx = torch.sort(orphan.to(torch.int32), descending=True, stable=True).indices[:k]
-        valid = orphan[idx]
-        idx = idx.to(torch.int32)
-        any_orphan = valid[0]
-        head = idx[0]
-        t_old = adj[start, r_max - 1]
-        rows = torch.cat([idx.new_full((1,), start), idx[:1], idx[: k - 1]])
-        slots = torch.cat([
-            torch.tensor([r_max - 1, r_max - 2], dtype=torch.int64, device=dev),
-            torch.full((k - 1,), r_max - 1, dtype=torch.int64, device=dev),
-        ])
-        new_vals = torch.cat([head[None], t_old[None], idx[1:]])
-        mask = torch.cat([
-            any_orphan[None], (any_orphan & (t_old != INVALID_ID))[None], valid[1:]
-        ])
-        ext = torch.cat([adj, adj[:1]], dim=0)
-        ext[torch.where(mask, rows, cap).long(), slots] = torch.where(
-            mask, new_vals, INVALID_ID
-        )
-        adj = ext[:cap]
-        orphan = orphan.clone()
-        orphan[idx.long()[valid]] = False
-        rounds += 1
+    link = taken & (q < k - 1) & (pos + 1 < total)
+    nxt = ids[(pos + 1).clamp(0, cap)]
+    adj[:, r_max - 1] = torch.where(link, nxt, adj[:, r_max - 1].long()).to(torch.int32)
+    t_first = arrays.adjacency[min(start, cap - 1), r_max - 1:r_max].long()
+    prev_head = ids[((g - 1) * k).clamp_min(0)] if start < cap else t_first
+    t_old = torch.where(g > 0, prev_head, t_first)
+    rehome = taken & (q == 0) & (t_old != INVALID_ID)
+    adj[:, r_max - 2] = torch.where(rehome, t_old, adj[:, r_max - 2].long()).to(torch.int32)
+    if start < cap:
+        n_taken = total.clamp_max(_REPAIR_ROUNDS * k)
+        last_head = ids[torch.div((n_taken - 1).clamp_min(0), k, rounding_mode="floor") * k]
+        entry = adj[start, r_max - 1:r_max]
+        entry.copy_(torch.where(n_taken > 0, last_head, entry.long()).to(torch.int32))
     return arrays._replace(adjacency=adj)
 
 

@@ -1,6 +1,7 @@
 // The CUDA features the loop kernels of csrc/ (beam_search.cu,
-// prune_scan.cu, beam_search_full.cu, iter_step.cu) use, emulated on the
-// CPU so that their sources run under g++ (tests/test_torch_*_emulated.py).
+// prune_scan.cu, beam_search_full.cu, iter_step.cu, reachable.cu) use,
+// emulated on the CPU so that their sources run under g++
+// (tests/test_torch_*_emulated.py).
 // PGVS_CUDA_EMU tells rowdist.cuh to take its cp.async steps from here.  Every
 // CUDA thread of a block is a fiber (ucontext) on the calling thread, run
 // in turn until it reaches a barrier: __syncthreads waits for the block,
@@ -8,7 +9,12 @@
 // through a per-warp buffer) for the warp.  One host thread, so a test run
 // beside others does not fight them for cores.  A barrier that not every
 // thread of its block (or warp) reaches stops the run with a message, where
-// on the card it would be undefined.
+// on the card it would be undefined.  A cooperative launch
+// (cudaLaunchCooperativeKernel) runs every block's fibers together, so a
+// grid-wide barrier is written as on the card: a thread spinning on a word
+// calls __nanosleep, which hands its turn to the next fiber; three rounds
+// in a row in which every fiber that ran only spun stop the run.
+// emu_lead_block makes one block run ahead of the rest.
 #pragma once
 
 #include <math.h>
@@ -74,7 +80,11 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return
 inline float __fmul_rn(float a, float b) { return a * b; }
 
 struct EmuIndex { int x; };
-inline EmuIndex threadIdx, blockIdx;
+inline EmuIndex threadIdx, blockIdx, blockDim, gridDim;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
 
 // The running block: its fibers, its barriers (0: the block; 1 + w: warp
 // w) and each warp's exchange buffer.
@@ -87,6 +97,7 @@ struct EmuBlock {
   struct Fiber {
     ucontext_t ctx;
     int state, barrier;
+    bool spun;  // its last turn ended in __nanosleep
     std::vector<Copy> open;                  // cp.async copies not yet committed
     std::deque<std::vector<Copy>> batches;   // committed, not yet landed
   };
@@ -100,6 +111,11 @@ struct EmuBlock {
   const void* params;
 };
 inline EmuBlock* emu_block;
+// A block that runs ahead of the others (-1: none): in every round of a
+// launch its threads run until none of them moves, before the other blocks
+// take their turns, as a block released first from a grid barrier may race
+// ahead on the card.
+inline int emu_lead_block = -1;
 
 // This thread waits at barrier b until `need` threads have arrived.
 inline void emu_wait(int b, int need) {
@@ -115,6 +131,15 @@ inline void emu_wait(int b, int need) {
   blk.fibers[me].barrier = b;
   swapcontext(&blk.fibers[me].ctx, &blk.scheduler);
 }
+
+// A spinning thread's turn ends here; it stays runnable.
+inline void __nanosleep(unsigned) {
+  EmuBlock& blk = *emu_block;
+  blk.fibers[threadIdx.x].spun = true;
+  swapcontext(&blk.fibers[threadIdx.x].ctx, &blk.scheduler);
+}
+// One host thread runs every fiber: memory is always coherent.
+inline void __threadfence() {}
 
 inline void __syncthreads() { emu_wait(0, static_cast<int>(emu_block->fibers.size())); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_wait(1 + (threadIdx.x >> 5), 32); }
@@ -218,6 +243,8 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+template <class T>
+inline T __ldcg(const T* p) { return *p; }
 
 // Fibers switch only at barriers, so these run whole.
 inline int atomicCAS(int* a, int expected, int v) {
@@ -245,6 +272,16 @@ inline int atomicAdd(int* a, int v) {
   *a = old + v;
   return old;
 }
+inline unsigned atomicAdd(unsigned* a, unsigned v) {
+  const unsigned old = *a;
+  *a = old + v;
+  return old;
+}
+inline unsigned atomicOr(unsigned* a, unsigned v) {
+  const unsigned old = *a;
+  *a = old | v;
+  return old;
+}
 
 inline void emu_fiber_entry() {
   EmuBlock& blk = *emu_block;
@@ -253,53 +290,100 @@ inline void emu_fiber_entry() {
   swapcontext(&blk.fibers[threadIdx.x].ctx, &blk.scheduler);
 }
 
-// Run kernel(p) as a grid of `blocks` blocks of `threads` threads, one block
-// at a time, with `smem` bytes of dynamic shared memory filled with garbage.
+// Run kernel(p) as a grid of `blocks` blocks of `threads` threads, `together`
+// blocks at a time (their fibers interleaved), each block with `smem` bytes
+// of dynamic shared memory filled with garbage.
 template <class Kernel, class P>
-void emu_launch(Kernel kernel, const P& p, int blocks, int threads, size_t smem) {
+void emu_run(Kernel kernel, const P& p, int blocks, int threads, size_t smem, int together) {
   constexpr size_t kStack = 1 << 18;
-  std::vector<unsigned char> buffer(smem + 16);
-  std::unique_ptr<unsigned char[]> stacks(new unsigned char[kStack * threads]);
   static Kernel run;
   run = kernel;
-  EmuBlock blk;
-  blk.fibers.resize(threads);
-  blk.arrived.assign(1 + threads / 32, 0);
-  blk.votes.assign(threads, 0);
-  blk.smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(buffer.data()) + 15) & ~uintptr_t(15));
-  blk.body = [](const void* params) { run(*static_cast<const P*>(params)); };
-  blk.params = &p;
-  emu_block = &blk;
-  for (int b = 0; b < blocks; ++b) {
-    blockIdx.x = b;
-    std::fill(buffer.begin(), buffer.end(), 0xAB);
-    for (int t = 0; t < threads; ++t) {
-      EmuBlock::Fiber& f = blk.fibers[t];
-      f.state = EmuBlock::kRunnable;
-      f.open.clear();
-      f.batches.clear();
-      getcontext(&f.ctx);
-      f.ctx.uc_stack.ss_sp = stacks.get() + kStack * t;
-      f.ctx.uc_stack.ss_size = kStack;
-      f.ctx.uc_link = nullptr;
-      makecontext(&f.ctx, emu_fiber_entry, 0);
-    }
-    int done = 0;
-    while (done < threads) {
-      bool ran = false;
+  blockDim.x = threads;
+  gridDim.x = blocks;
+  std::vector<EmuBlock> group(together);
+  std::vector<std::vector<unsigned char>> buffers(together,
+                                                  std::vector<unsigned char>(smem + 16));
+  std::unique_ptr<unsigned char[]> stacks(
+      new unsigned char[kStack * static_cast<size_t>(threads) * together]);
+  for (int g = 0; g < together; ++g) {
+    EmuBlock& blk = group[g];
+    blk.fibers.resize(threads);
+    blk.arrived.assign(1 + threads / 32, 0);
+    blk.votes.assign(threads, 0);
+    blk.smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(buffers[g].data()) + 15) & ~uintptr_t(15));
+    blk.body = [](const void* params) { run(*static_cast<const P*>(params)); };
+    blk.params = &p;
+  }
+  for (int b0 = 0; b0 < blocks; b0 += together) {
+    const int n = min(together, blocks - b0);
+    for (int g = 0; g < n; ++g) {
+      std::fill(buffers[g].begin(), buffers[g].end(), 0xAB);
       for (int t = 0; t < threads; ++t) {
-        if (blk.fibers[t].state != EmuBlock::kRunnable) continue;
-        ran = true;
-        threadIdx.x = t;
-        swapcontext(&blk.scheduler, &blk.fibers[t].ctx);
-        if (blk.fibers[t].state == EmuBlock::kDone) ++done;
+        EmuBlock::Fiber& f = group[g].fibers[t];
+        f.state = EmuBlock::kRunnable;
+        f.spun = false;
+        f.open.clear();
+        f.batches.clear();
+        getcontext(&f.ctx);
+        f.ctx.uc_stack.ss_sp = stacks.get() + kStack * (static_cast<size_t>(g) * threads + t);
+        f.ctx.uc_stack.ss_size = kStack;
+        f.ctx.uc_link = nullptr;
+        makecontext(&f.ctx, emu_fiber_entry, 0);
       }
-      if (!ran) {
-        fprintf(stderr, "emulated block %d: a barrier not every thread reaches\n", b);
+    }
+    int done = 0, idle_rounds = 0;
+    bool ran = false;
+    // One turn of thread t of block g, if it can run: whether it moved (did
+    // more than spin).
+    auto turn = [&](int g, int t) {
+      EmuBlock::Fiber& f = group[g].fibers[t];
+      if (f.state != EmuBlock::kRunnable) return false;
+      ran = true;
+      emu_block = &group[g];
+      blockIdx.x = b0 + g;
+      threadIdx.x = t;
+      f.spun = false;
+      swapcontext(&group[g].scheduler, &f.ctx);
+      if (f.state == EmuBlock::kDone) ++done;
+      return !f.spun;
+    };
+    const int lead = emu_lead_block - b0;
+    while (done < n * threads) {
+      bool moved = false;
+      ran = false;
+      if (lead >= 0 && lead < n) {
+        // The lead block runs on until none of its threads moves.
+        for (bool again = true; again; moved |= again) {
+          again = false;
+          for (int t = 0; t < threads; ++t) again |= turn(lead, t);
+        }
+      }
+      for (int g = 0; g < n; ++g)
+        for (int t = 0; t < threads; ++t) moved |= turn(g, t);
+      idle_rounds = moved ? 0 : idle_rounds + 1;
+      if (!ran || idle_rounds > 2) {
+        fprintf(stderr, "emulated blocks %d..%d: a barrier not every thread reaches\n", b0,
+                b0 + n - 1);
         abort();
       }
     }
   }
   emu_block = nullptr;
+}
+
+// One block at a time, as blocks that never wait for each other may run.
+template <class Kernel, class P>
+void emu_launch(Kernel kernel, const P& p, int blocks, int threads, size_t smem) {
+  emu_run(kernel, p, blocks, threads, smem, 1);
+}
+
+// A cooperative launch of a kernel that takes one parameter struct: every
+// block resident at once.
+template <class P>
+inline int cudaLaunchCooperativeKernel(void (*kernel)(P), dim3 grid, dim3 block, void** args,
+                                       size_t smem, cudaStream_t) {
+  emu_run(kernel, *static_cast<const P*>(args[0]), static_cast<int>(grid.x),
+          static_cast<int>(block.x), smem, static_cast<int>(grid.x));
+  return cudaSuccess;
 }

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from pgvectorscale_tpu_torch.ops import (_build, beam_search, beam_search_full, edge_gather,
-                                         hamming_matrix, iter_step, prune_scan)
+                                         hamming_matrix, iter_step, prune_scan, reachable)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -747,3 +747,93 @@ def test_iter_step_kernel_matches_plain_on_card(cuda_device, case):
         torch.cuda.synchronize()
         assert iter_step.refill_differs(got, want, exact) == [], f"refill {k}"
         ours, plain = got[0], want[0]
+
+
+def test_reachable_wrapper_takes_plain_on_cpu_and_rejects_bad_inputs():
+    g = torch.Generator().manual_seed(4)
+    adj, count, start = reachable.graph_case("islands", 300, 6, "cpu", g, count=250)
+    before = reachable.launches
+    got = reachable.reachable(adj, count, start)
+    assert torch.equal(got, reachable.reachable_scatter_plain(adj, count, start))
+    assert torch.equal(got, reachable.reachable_csr_plain(adj, count, start))
+    assert torch.equal(reachable.reachable(adj, count, start, csr_min_cap=300), got)
+    assert reachable.launches == before
+    with pytest.raises(TypeError):
+        reachable.reachable(adj.long(), count, start)
+    with pytest.raises(ValueError):
+        reachable.reachable(adj.t(), count, start)
+    with pytest.raises(ValueError):
+        reachable.reachable(adj[0], count, start)
+    with pytest.raises(ValueError):
+        reachable.reachable(adj, 301, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", reachable.CHECK_CASES, ids=reachable.case_id)
+def test_reachable_kernel_matches_both_plain_versions_on_card(cuda_device, case):
+    g = torch.Generator(device=cuda_device).manual_seed(case["cap"] + case["r"])
+    adj, count, start = reachable.case_graph(case, cuda_device, g)
+    before = reachable.launches
+    got = reachable.reachable(adj, count, start)
+    assert reachable.launches == before + 1
+    assert torch.equal(got, reachable.reachable_scatter_plain(adj, count, start))
+    assert torch.equal(got, reachable.reachable_csr_plain(adj, count, start))
+    if case["kind"] == "chain" and not case.get("fan"):
+        assert int(got.sum()) == case["levels"] + 1
+
+
+@pytest.mark.cuda
+def test_reachable_kernel_on_a_few_blocks_on_card(cuda_device):
+    """A grid of 1 and of 3 blocks (each level's rows shared by fewer
+    warps) gives the same set as the full grid."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    adj, count, start = reachable.graph_case("fan", 30_000, 65, cuda_device, g, levels=50,
+                                             fan=60)
+    want = reachable.reachable_scatter_plain(adj, count, start)
+    for blocks in (1, 3, 0):
+        got, head = reachable.launch(adj, count, start, max_blocks=blocks)
+        assert torch.equal(got, want)
+        levels = reachable.levels(head)
+        assert levels["block"] >= 50 and levels["grid"] > 0
+
+
+@pytest.mark.cuda
+def test_bfs_and_device_repair_read_nothing_back_on_card(cuda_device):
+    """``reachable_on_device`` and ``repair_orphans_device`` on the card
+    make no host read (torch's sync debug mode raises on one), and the
+    repair equals the CPU's bit for bit and leaves no orphan."""
+    from pgvectorscale_tpu_torch.graph import build
+    from pgvectorscale_tpu_torch.store import GraphArrays
+
+    g = torch.Generator().manual_seed(12)
+    adj, count, start = reachable.graph_case("random", 50_000, 65, "cpu", g)
+    victims = torch.randperm(count - 1, generator=g)[:5_000] + 1
+    hit = torch.zeros(count + 1, dtype=torch.bool)
+    hit[victims] = True
+    adj = torch.where(hit[torch.where(adj >= 0, adj, count).long()], -1, adj)
+    adj[0, -1] = -1
+
+    def arrays_on(dev):
+        return GraphArrays(
+            vectors=torch.zeros((count, 0), device=dev),
+            codes=torch.zeros((count, 0), dtype=torch.int32, device=dev),
+            adjacency=adj.to(dev), deleted=torch.zeros(count, dtype=torch.bool, device=dev),
+            count=count, default_start=start,
+            node_labels=torch.zeros((count, 0), dtype=torch.int32, device=dev),
+            label_start_keys=torch.zeros(1, dtype=torch.int32, device=dev),
+            label_start_ids=torch.zeros(1, dtype=torch.int32, device=dev),
+            vec_scales=torch.ones(count, device=dev))
+
+    card = arrays_on(cuda_device)
+    reachable.reachable(card.adjacency, count, start)  # the kernel loaded before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seen = build.reachable_on_device(card)
+        repaired = build.repair_orphans_device(card)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int((~seen).sum()) >= 5_000
+    want = build.repair_orphans_device(arrays_on("cpu"))
+    assert torch.equal(repaired.adjacency.cpu(), want.adjacency)
+    assert bool(build.reachable_on_device(repaired).all())
