@@ -58,9 +58,10 @@ Phases, each reported on a timestamped, flushed line:
    floor printed beside them).  The reachability BFS kernel equal to both plain
    BFS versions (scatter and CSR pull) at BFS_CASES: phase 13's 1M slots
    at R = 65, a 1,000-level chain, islands with ids past count and cap,
-   start -1; each timed (kernel, both plain versions) beside its byte bound
-   and its chain (levels x one dependent read), with the levels the grid
-   and block 0 alone expanded.
+   start -1, 100k slots, and 2M slots (above the shared-memory bitmap's
+   limit); each timed (kernel, both plain versions) beside its byte bound
+   and its chain (levels x one dependent read), with the levels the grid,
+   block 0 alone and warp 0 alone expanded.
 3. build: a 100,000 x 768 SBQ index (cosine, 2 bits/dim, R=50, L=100,
    build_distance "exact-prune") of the seeded "cohere" corpus, through
    ``DiskannIndex.build``; checks full reachability, no orphans, degree
@@ -70,7 +71,8 @@ Phases, each reported on a timestamped, flushed line:
    (fails below 0.80 at rescore 300); the build must launch beam_search
    and prune_scan, the searches beam_search; one more search inside
    ``stats.profiler_trace``, whose trace must hold one beam_search
-   kernel for each launch.
+   kernel for each launch.  Outside the path, the BFS kernel over the
+   built index: its device time beside its byte bound.
 5. loops agreement (outside the path): on phase 3's index, a search at
    rescore 300 and a searched wave of 4,096 rows through the two loop
    kernels and through their plain versions on the card: the search's
@@ -614,12 +616,17 @@ ITER_DEEP = (1024, 4096)
 # shape: the BFS that each add into the 1M index pays); a chain of ORPHANS
 # levels (the chain that phase 17's repair of as many orphans writes) over
 # 100k slots, through which the plain versions take a round a level;
-# islands, with ids at and past count and cap; start -1.
+# islands, with ids at and past count and cap; start -1; 100k slots as the
+# first (the finalize and add shape of the 100k builds); 2M slots, above
+# the table whose visited bitmap the kernel's blocks copy into shared
+# memory (ops.reachable.smem_bitmap_max_rows(): they probe it in L2 there).
 BFS_CASES = [
     ("random 1M", dict(kind="random", cap=SCALE_CAP, r=65, invalid_share=INVALID_EDGE_SHARE)),
     ("chain", dict(kind="chain", cap=100_000, r=65, levels=ORPHANS)),
     ("islands", dict(kind="islands", cap=100_000, r=65, count=90_000)),
     ("start -1", dict(kind="random", cap=100_000, r=65, start=-1)),
+    ("random 100k", dict(kind="random", cap=100_000, r=65, invalid_share=INVALID_EDGE_SHARE)),
+    ("random 2M", dict(kind="random", cap=2_000_000, r=65, invalid_share=INVALID_EDGE_SHARE)),
 ]
 # Per-SM f32 operations a clock (CUDA C Programming Guide, compute
 # capability 9.0): the prune's factor arithmetic, the full-precision
@@ -1265,15 +1272,22 @@ def check_reachable(card: dict) -> dict:
     queued behind a device sleep) and both plain versions (one call each
     between events: they read the device every round), beside the bound
     (the reached rows' adjacency once and the output,
-    ``ops.reachable.bound_bytes``; the kernel's queues are its own overhead;
-    the operations, one
-    compare and one bit test a slot, on the CUDA cores) and the chain
-    (levels x one dependent device read).  The first case is the kernels
-    line's."""
+    ``ops.reachable.bound_bytes``; the kernel's bitmaps are its own
+    overhead; the operations, one compare and one bit test a slot, on the
+    CUDA cores) and the chain (levels x one dependent device read).  The
+    first case is the kernels line's.  The cases must fall on both sides
+    of the shared-memory bitmap's limit, so both of the kernel's branches
+    run."""
     import torch
 
     from pgvectorscale_tpu_torch.ops import reachable as rc
 
+    limit = rc.smem_bitmap_max_rows()
+    caps = [case["cap"] for _, case in BFS_CASES]
+    if not max(caps) > limit > min(caps):
+        fail(f"BFS_CASES do not reach both sides of the shared-memory bitmap's limit "
+             f"({limit} rows)")
+    say(f"  reachable: visited bitmap in shared memory up to {limit} rows, in L2 above")
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     cases, max_err = {}, 0.0
     for name, case in BFS_CASES:
@@ -1303,9 +1317,10 @@ def check_reachable(card: dict) -> dict:
         chain = n_levels * HBM_READ_NS * 1e-6
         say(f"  reachable {name} (cap={cap} R={r} count={count} start={start}): {reached} rows "
             f"reached in {n_levels} levels ({levels['grid']} by the grid, {levels['block']} by "
-            f"block 0 alone); kernel {ms:.4f} ms, scatter {scatter_ms:.4f} ms, csr "
-            f"{csr_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {how}); the chain "
-            f"{chain:.4f} ms ({n_levels} levels x one dependent read at {HBM_READ_NS} ns)")
+            f"block 0 alone, {levels['warp']} of them by warp 0); kernel {ms:.4f} ms, scatter "
+            f"{scatter_ms:.4f} ms, csr {csr_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{how}); the chain {chain:.4f} ms ({n_levels} levels x one dependent read at "
+            f"{HBM_READ_NS} ns)")
         cases[name] = dict(ms=ms, scatter_ms=scatter_ms, csr_ms=csr_ms, bound_ms=bound_ms,
                            bound_by=bound_by, bound_how=how, chain_bound_ms=chain,
                            reached=reached, levels=levels,
@@ -2912,6 +2927,29 @@ def phase_search_stats(index, queries) -> dict:
     return dict(card=card, cpu=plain, estimate=estimate)
 
 
+def phase_built_bfs(index) -> dict:
+    """Phase 4 (outside the path): the BFS kernel over phase 3's built
+    index, the mean device time of 10 launches (``cuda_time_ms``) beside
+    its byte bound; every row reachable."""
+    import torch
+
+    from pgvectorscale_tpu_torch.graph.build import reachable_on_device
+    from pgvectorscale_tpu_torch.ops import reachable as rc
+
+    a = index.arrays
+    reach = int(reachable_on_device(a)[: index.count].sum())
+    ms = cuda_time_ms(lambda i: reachable_on_device(a), 10)
+    cap, r = a.adjacency.shape
+    out = dict(ms=ms, reached=reach, rows=index.count,
+               bound_ms=rc.bound_bytes(cap, r, reach) / HBM_BYTES_PER_S * 1e3)
+    torch.cuda.synchronize()
+    say(f"phase 4 BFS over the built index ({index.count} rows, cap {cap}, R={r}): kernel "
+        f"{ms:.4f} ms of device time, {reach} reachable, byte bound {out['bound_ms']:.4f} ms")
+    if reach != index.count:
+        fail("phase 4: the built index has unreachable rows")
+    return out
+
+
 def phase_debug_helpers(index) -> dict:
     """Phase 17, the debug helpers on phase 3's index (run before it is
     freed): every row reachable, no row without an in-edge."""
@@ -4062,6 +4100,7 @@ def main(argv=None) -> int:
             loops = phase_loops_agreement(index, queries)
             phase_agreement(index, queries)
             search_stats = phase_search_stats(index, queries)
+            built_bfs = phase_built_bfs(index)
 
             reset_counts()  # the windows path starts here
             windows = phase_windows(index, vectors, queries)
@@ -4239,6 +4278,7 @@ def main(argv=None) -> int:
                 "chain_ms": {k: timing[k]["chain_ms"] for k in BUILD_KERNELS
                              + ("beam_search_full", "iter_step")},
                 "reachable_cases": timing["reachable"]["cases"],
+                "reachable_built_100k": built_bfs,
                 "beam_search_full_build_wave": timing["beam_search_full"]["build_wave"],
                 "beam_search_full_built_search": {k: v for k, v in built_full.items()
                                                   if k != "bound_how"},

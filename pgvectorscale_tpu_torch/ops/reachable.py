@@ -16,12 +16,15 @@ id at or past ``count`` is neither reached nor expanded, and ids past
 ``cap`` are dropped; with ``start < 0`` or ``start >= count`` nothing is.
 
 The kernel (``csrc/reachable.cu``) is a level-synchronous push BFS in one
-cooperative launch: a visited bitmap and two frontier queues in scratch
-allocated here, a warp a frontier row, a grid barrier between levels, and
-block 0 alone while the frontier is small (a chain costs block barriers).
-Bound on an H100: the reached rows' adjacency once and the output
-(``bound_bytes``; the queues are this kernel's overhead, not the
-function's); on a chain, one dependent device read a level.
+cooperative launch, one block of 1,024 threads an SM: a visited bitmap and
+two frontier bitmaps in zeroed scratch and a small stash a block,
+allocated here; a grid level takes the frontier from its bitmap, a warp a
+word of 32 rows, their spans read in 16-byte chunks; new ids are probed in
+a copy of the visited bitmap in shared memory while it fits
+(``smem_bitmap_max_rows``), else in L2; block 0 (or warp 0) alone while the
+frontier is small (a chain costs no grid barrier).  Bound on an H100: the
+reached rows' adjacency once and the output (``bound_bytes``); on a
+chain, one dependent device read a level.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version that the JAX package picks for its capacity: the CSR pull-BFS from
@@ -42,9 +45,11 @@ from . import _build
 # package's reachable_on_device does.
 CSR_BFS_MIN_CAP = 300_000
 # 32-bit words at the head of the kernel's scratch (reachable.cu's enum):
-# the levels expanded by the whole grid and by block 0 alone.
+# the levels expanded by the whole grid, by block 0 alone (warp 0's
+# included) and by warp 0 alone.
 HEAD_GRID_LEVELS = 5
 HEAD_BLOCK_LEVELS = 6
+HEAD_WARP_LEVELS = 7
 HEAD_WORDS = 8
 
 launches = 0
@@ -158,16 +163,16 @@ def launch(adjacency: torch.Tensor, count: int, start: int, *, max_blocks: int =
     cap, r = adjacency.shape
     dev = adjacency.device
     out = torch.empty((cap,), dtype=torch.bool, device=dev)
-    fn, zeroed_words = lib if lib is not None else bind(_build.load("reachable"))
+    fn, zeroed_words, stash_words = lib if lib is not None else bind(_build.load("reachable"))
     head = torch.zeros((zeroed_words(cap),), dtype=torch.int32, device=dev)
     if cap == 0:
         return out, head
-    queues = torch.empty((2 * max(count, 1),), dtype=torch.int32, device=dev)
+    stash = torch.empty((stash_words(),), dtype=torch.int32, device=dev)
     if device_index is None:
         device_index = dev.index if dev.index is not None else torch.cuda.current_device()
     if stream is None:
         stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(adjacency.data_ptr(), out.data_ptr(), head.data_ptr(), queues.data_ptr(), cap, r,
+    err = fn(adjacency.data_ptr(), out.data_ptr(), head.data_ptr(), stash.data_ptr(), cap, r,
              count, start, max_blocks, device_index, stream)
     if err != 0:
         raise RuntimeError(f"reachability kernel launch failed: CUDA error {err}")
@@ -176,27 +181,43 @@ def launch(adjacency: torch.Tensor, count: int, start: int, *, max_blocks: int =
 
 def levels(head: torch.Tensor) -> dict:
     """The levels a launch expanded, from its scratch head (a host read):
-    by the whole grid and by block 0 alone."""
+    by the whole grid, by block 0 alone (warp 0's included) and by warp 0
+    alone."""
     h = head[:HEAD_WORDS].cpu()
-    return {"grid": int(h[HEAD_GRID_LEVELS]), "block": int(h[HEAD_BLOCK_LEVELS])}
+    return {"grid": int(h[HEAD_GRID_LEVELS]), "block": int(h[HEAD_BLOCK_LEVELS]),
+            "warp": int(h[HEAD_WARP_LEVELS])}
 
 
 def bind(lib: ctypes.CDLL):
-    """(launch function, zeroed-words function) of a loaded build of
-    ``csrc/reachable.cu``, with their ctypes signatures set."""
+    """(launch function, zeroed-words function, stash-words function) of a
+    loaded build of ``csrc/reachable.cu``, with their ctypes signatures set."""
     fn = lib.pgvs_reachable
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     words = lib.pgvs_reachable_zeroed_words
     words.argtypes = [ctypes.c_int]
     words.restype = ctypes.c_longlong
-    return fn, words
+    stash = lib.pgvs_reachable_stash_words
+    stash.argtypes = []
+    stash.restype = ctypes.c_longlong
+    return fn, words, stash
+
+
+def smem_bitmap_max_rows(lib: ctypes.CDLL | None = None) -> int:
+    """The largest table whose visited bitmap the kernel's blocks copy into
+    shared memory (a build of ``csrc/reachable.cu``, the port's by default);
+    above it they probe the bitmap in L2."""
+    lib = lib if lib is not None else _build.load("reachable")
+    fn = lib.pgvs_reachable_smem_bitmap_max_rows
+    fn.argtypes = []
+    fn.restype = ctypes.c_longlong
+    return int(fn())
 
 
 def bound_bytes(cap: int, r: int, reached: int) -> int:
     """Bytes the BFS must move: each reached row's adjacency once and the
-    bool[cap] output.  The kernel's queues (each reached id written and read
-    once) are its own overhead: a BFS need not keep them."""
+    bool[cap] output.  The kernel's bitmaps are its own overhead: a BFS need
+    not keep them."""
     return reached * r * 4 + cap
 
 
@@ -260,11 +281,13 @@ def graph_case(kind: str, cap: int, r: int, device, generator=None, *, count=Non
 
 # The graphs the kernel is held to on the card (tests/test_torch_kernels.py):
 # random graphs at the built graph's width (R = 65, 23% of the slots empty)
-# and at 60% empty, islands with ids at and past count and cap, start -1 and
-# past count, a 1,000-level chain, a chain that fans out again, a wide level
-# that narrows to a chain and widens again, and a tiny table.
+# and at 60% empty, one above smem_bitmap_max_rows() (the blocks probe the
+# bitmap in L2 there), islands with ids at and past count and cap, start -1
+# and past count, a 1,000-level chain, a chain that fans out again, a wide
+# level that narrows to a chain and widens again, and a tiny table.
 CHECK_CASES = [
     dict(kind="random", cap=100_000, r=65),
+    dict(kind="random", cap=2_000_000, r=65),
     dict(kind="random", cap=4_000, r=7, invalid_share=0.6),
     dict(kind="islands", cap=50_000, r=65, count=40_000),
     dict(kind="random", cap=10_000, r=65, start=-1),

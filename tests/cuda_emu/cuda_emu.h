@@ -24,6 +24,7 @@
 #include <ucontext.h>
 
 #include <algorithm>
+#include <chrono>
 #include <cstring>
 #include <deque>
 #include <memory>
@@ -59,6 +60,22 @@ inline int cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline int cudaSetDevice(int) { return cudaSuccess; }
 inline int cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline int cudaGetLastError() { return cudaSuccess; }
+inline int cudaDeviceSynchronize() { return cudaSuccess; }
+inline int cudaMemset(void* p, int v, size_t n) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
+// A __device__ variable is a host global here.
+template <class T>
+inline int cudaMemcpyFromSymbol(void* dst, const T& symbol, size_t n) {
+  std::memcpy(dst, &symbol, n);
+  return cudaSuccess;
+}
+template <class T>
+inline int cudaGetSymbolAddress(void** p, T& symbol) {
+  *p = &symbol;
+  return cudaSuccess;
+}
 // An H100's 132 SMs; 1,024 threads an SM.
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 132; return cudaSuccess; }
 template <class F>
@@ -174,6 +191,10 @@ template <class T>
 inline T __shfl_sync(unsigned, T v, int src) {
   return emu_exchange(v, [src](int) { return src; });
 }
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned d) {
+  return emu_exchange(v, [d](int lane) { return lane >= static_cast<int>(d) ? lane - d : lane; });
+}
 inline unsigned __ballot_sync(unsigned, bool pred) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   emu_block->lanes[warp][lane] = pred;
@@ -282,6 +303,20 @@ inline unsigned atomicOr(unsigned* a, unsigned v) {
   *a = old | v;
   return old;
 }
+inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
+  const unsigned long long old = *a;
+  *a = old + v;
+  return old;
+}
+
+// The clocks a stamp reads: a thread's cycles and the device's nanoseconds,
+// both the host's steady clock here (the kernel reads %globaltimer through
+// emu_globaltimer under PGVS_CUDA_EMU).
+inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+inline unsigned long long emu_globaltimer() { return static_cast<unsigned long long>(clock64()); }
 
 inline void emu_fiber_entry() {
   EmuBlock& blk = *emu_block;
